@@ -1,0 +1,149 @@
+"""Vector helpers over stacked tensors of shape (..., 3) / (..., 2).
+
+Counterpart of ignis_tpu/core/vec.py: the last axis is the component axis and
+every leading axis is a ray/sample lane.  Constants are Python floats holding
+exact float32 values, so `tensor * CONST` rounds as the reference does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+FLT_EPS = float(np.float32(1.1920928955078125e-07))  # 2^-23
+FLT_MAX = float(np.float32(3.4028234663852886e38))
+FLT_INF = float("inf")
+PI = float(np.float32(3.14159265358979323846))
+INV_PI = float(np.float32(1.0 / 3.14159265358979323846))
+
+
+def _as_f32(x, like):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _stack(*comps):
+    like = next(c for c in comps if isinstance(c, torch.Tensor))
+    comps = torch.broadcast_tensors(*[_as_f32(c, like) for c in comps])
+    return torch.stack(comps, dim=-1)
+
+
+def vec3(x, y, z):
+    return _stack(x, y, z)
+
+
+def vec2(x, y):
+    return _stack(x, y)
+
+
+def dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def cross(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def length2(a):
+    return dot(a, a)
+
+
+def length(a):
+    return torch.sqrt(length2(a))
+
+
+def normalize(a):
+    return a * safe_div(1.0, length(a))[..., None]
+
+
+def safe_div(a, b):
+    """a/b with 0 where b == 0."""
+    zero = b == 0
+    return torch.where(zero, torch.zeros_like(b),
+                       a / torch.where(zero, torch.ones_like(b), b))
+
+
+def safe_sqrt(a):
+    return torch.sqrt(torch.clamp_min(a, 0.0))
+
+
+def signbit(a):
+    return torch.signbit(a)
+
+
+def reflect(v, n):
+    """Mirror v at n; v points away from the surface."""
+    return 2.0 * dot(n, v)[..., None] * n - v
+
+
+def refract(v, n, eta, cos_i, cos_t):
+    """Refraction direction given precomputed cosines; v points away from the
+    surface, eta = n1/n2 on the v side, cos_t is the signed transmitted
+    cosine from `fresnel`."""
+    return n * (eta * cos_i - cos_t)[..., None] - v * eta[..., None]
+
+
+def lerp2(a, b, c, u, v):
+    """Barycentric interpolation a*(1-u-v) + b*u + c*v."""
+    w = (1.0 - u - v)[..., None]
+    return a * w + b * u[..., None] + c * v[..., None]
+
+
+def mulf(a, f):
+    return a * f[..., None]
+
+
+def luminance(c):
+    return (c[..., 0] * float(np.float32(0.2126))
+            + c[..., 1] * float(np.float32(0.7152))
+            + c[..., 2] * float(np.float32(0.0722)))
+
+
+def max_component(c):
+    return torch.amax(c, dim=-1)
+
+
+def orthonormal_basis(n):
+    """Duff et al. branchless ONB.  Returns (t, b) with columns (t, b, n)."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    sign = torch.where(nz >= 0, 1.0, -1.0).to(torch.float32)
+    a = -1.0 / (sign + nz)
+    b = nx * ny * a
+    t = vec3(1.0 + sign * nx * nx * a, sign * b, -sign * nx)
+    bt = vec3(b, sign + ny * ny * a, -ny)
+    return t, bt
+
+
+def to_world(local_dir, t, b, n):
+    """Transform a local (tangent-space) direction to world given ONB columns."""
+    return (t * local_dir[..., 0:1]
+            + b * local_dir[..., 1:2]
+            + n * local_dir[..., 2:3])
+
+
+def to_local(world_dir, t, b, n):
+    return vec3(dot(world_dir, t), dot(world_dir, b), dot(world_dir, n))
+
+
+def positive_cos(a, b):
+    return torch.clamp_min(dot(a, b), 0.0)
+
+
+def absolute_cos(a, b):
+    return torch.abs(dot(a, b))
+
+
+def transform_point(m, p):
+    """Apply (..., 3, 4) affine matrix to points (..., 3)."""
+    return torch.einsum('...ij,...j->...i', m[..., :3], p) + m[..., 3]
+
+
+def transform_vector(m, v):
+    return torch.einsum('...ij,...j->...i', m[..., :3], v)
+
+
+def transform_normal(nm, n):
+    """Apply (..., 3, 3) normal matrix (inverse-transpose of linear part)."""
+    return torch.einsum('...ij,...j->...i', nm, n)

@@ -1,0 +1,627 @@
+"""Wavefront path tracer (the `path` technique).
+
+Counterpart of ignis_tpu/render/integrator.py.  Every bounce processes a
+fixed-capacity ray wave with masked lanes.  Technique logic (NEE, MIS
+weights, russian roulette, payload layout) and the per-lane RNG draw order
+follow the reference package exactly, so a lane's sample sequence is
+bit-identical and paths replay.
+
+Two entry points share the same bounce core:
+
+* `trace_wave`: one ray per lane traced to completion (camera rays from
+  pixel coordinates, or a ray list given as `org` / `direction`).
+* `render_wavefront`: the production camera path.  Dead lanes are refilled
+  with fresh (pixel, sample) work every bounce; radiance is added into a
+  per-work-item slot buffer.
+
+The bounce loops are Python loops on `alive.any()`: one host sync per bounce
+(plus one in the light selector's rejection loop when the scene has more than
+one light).
+
+Traversal dispatch: `pb_rows` in the tables -> the packet-BVH kernel;
+`bw_tris` -> the Baldwin-Weber kernel; neither -> the Moeller-Trumbore
+sweep of `ops.intersect` (plain torch), for tensors on the CPU only: the
+reference package's kernel for that sweep has no CUDA counterpart yet, so
+such tables raise on the card.  The kernel wrappers launch CUDA for tensors
+on the card and run their plain versions for tensors on the CPU.
+
+Payload: inv_pdf, contrib, depth (starts at 1), eta.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ignis_tpu_torch.bsdf import (
+    bsdf_eval, bsdf_pdf, bsdf_sample, prepare_surface,
+)
+from ignis_tpu_torch.core import rng
+from ignis_tpu_torch.core.dgather import gather_rows
+from ignis_tpu_torch.core.vec import (
+    FLT_EPS, FLT_MAX, cross, dot, length, normalize, orthonormal_basis,
+    safe_div,
+)
+from ignis_tpu_torch.light import (
+    env_emission_and_pdf, light_pdf_direct_solid, light_select_pdf,
+    sample_light_direct, select_light,
+)
+from ignis_tpu_torch.ops.bw_intersect import bw_any, bw_closest
+from ignis_tpu_torch.ops.intersect import intersect_any, intersect_closest
+from ignis_tpu_torch.ops.packet_bvh import (
+    MASK_BOUNCE, MASK_CAMERA, MASK_SHADOW, packet_bvh_any, packet_bvh_closest,
+)
+from ignis_tpu_torch.render.camera import generate_rays, pixel_coord_from_xy
+from ignis_tpu_torch.render.sampler import sample_pixel
+from ignis_tpu_torch.scene.compile import LIGHT_AREA_PLANE
+
+OFFSET = float(np.float32(0.001))  # ray offset
+
+RAY_CAMERA = 0x1
+RAY_LIGHT = 0x2
+RAY_BOUNCE = 0x4
+RAY_SHADOW = 0x8
+
+_UNPORTED_TABLES = {"tl_inst": "instancing (two-level traversal)",
+                    "sph_rows": "analytic spheres",
+                    "bvh_node_min": "the per-lane stack BVH traversal"}
+
+
+def _handle_color(c, clamp_value):
+    if clamp_value > 0:
+        return torch.clamp_max(c, float(np.float32(clamp_value)))
+    return c
+
+
+def _tri_mask_for(tables, flag_bit):
+    ent_flags = tables["ent_flags"]
+    return (ent_flags[tables["tri_ent"].long()] & flag_bit) != 0
+
+
+def _flags_trivial(scene, bit=None):
+    ent_flags = np.asarray(scene.tables["ent_flags"])
+    if bit is None:
+        return bool((ent_flags == 0xF).all())
+    return bool(((ent_flags & bit) != 0).all())
+
+
+def _check_tables(tables):
+    for key, what in _UNPORTED_TABLES.items():
+        if key in tables:
+            raise NotImplementedError(
+                f"{what} is not ported to ignis_tpu_torch yet")
+
+
+def _check_mt_sweep(tables, org):
+    """The Moeller-Trumbore sweep is the CPU's path for tables without
+    `bw_tris` / `pb_rows`.  On the card no kernel does this sweep yet and the
+    plain version must not stand in for one, so triangles there raise.  An
+    empty soup passes on either device: the sweep's loop has no chunk to run
+    and every ray misses."""
+    if org.is_cuda and tables["tri_v0"].shape[0] > 0:
+        raise NotImplementedError(
+            "traversal of tables without `bw_tris` / `pb_rows` on a CUDA "
+            "device (the whole-soup Moeller-Trumbore kernel) is not ported "
+            "to ignis_tpu_torch yet; build the tables with "
+            "`api.build_accel_tables`")
+
+
+def _traverse_closest(scene, tables, org, d, tmin, tmax, tri_mask,
+                      mask_bit=None):
+    """Closest-hit dispatch: packet BVH > Baldwin-Weber brute > MT sweep.
+
+    `tri_mask` is the per-triangle visibility array for the MT sweep;
+    `mask_bit` the equivalent ray-class bit for the kernels, whose tables
+    carry packed visibility bits.  Traversal is detached: hit results are
+    piecewise constant in the differentiable parameters.
+    """
+    org, d, tmin, tmax = (x.detach() for x in (org, d, tmin, tmax))
+    mb = MASK_BOUNCE if mask_bit is None else mask_bit
+    if "pb_rows" in tables:
+        return packet_bvh_closest(tables, org, d, tmin, tmax, mask_bit=mb)
+    if "bw_tris" in tables:
+        return bw_closest(tables, org, d, tmin, tmax, mask_bit=mb)
+    _check_mt_sweep(tables, org)
+    return intersect_closest(org, d, tmin, tmax, tables["tri_v0"],
+                             tables["tri_e1"], tables["tri_e2"],
+                             tri_mask=tri_mask)
+
+
+def _traverse_any(scene, tables, org, d, tmin, tmax, tri_mask,
+                  mask_bit=None):
+    """Any-hit dispatch; detached like `_traverse_closest`."""
+    org, d, tmin, tmax = (x.detach() for x in (org, d, tmin, tmax))
+    mb = MASK_SHADOW if mask_bit is None else mask_bit
+    if "pb_rows" in tables:
+        return packet_bvh_any(tables, org, d, tmin, tmax, mask_bit=mb)
+    if "bw_tris" in tables:
+        return bw_any(tables, org, d, tmin, tmax, mask_bit=mb)
+    _check_mt_sweep(tables, org)
+    return intersect_any(org, d, tmin, tmax, tables["tri_v0"],
+                         tables["tri_e1"], tables["tri_e2"],
+                         tri_mask=tri_mask)
+
+
+def _surface_at(tables, prim, org, direction, t, u, v):
+    """Surface element for hit lanes.  Per-triangle attributes come from one
+    gather of the packed (T, 28) `tri_shade` row when the tables carry it
+    (`api.pack_tri_shade`), else from the separate tables.  `prim` must be
+    in range (the caller clamps miss lanes to 0)."""
+    prim = prim.long()
+    if "tri_shade" in tables:
+        base = tables["tri_shade"].shape[0]
+        row = tables["tri_shade"][torch.clamp_max(prim, base - 1)]
+        v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+        n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
+        uv0, uv1, uv2 = row[:, 18:20], row[:, 20:22], row[:, 22:24]
+        # ids are stored as float32: exact below 2^24
+        ent = row[:, 24].to(torch.int32)
+        mat_id = row[:, 25].to(torch.int32)
+        light_id = row[:, 26].to(torch.int32)
+    else:
+        prim = torch.clamp_max(prim, tables["tri_v0"].shape[0] - 1)
+        v0 = tables["tri_v0"][prim]
+        e1 = tables["tri_e1"][prim]
+        e2 = tables["tri_e2"][prim]
+        n0 = tables["tri_n0"][prim]
+        n1 = tables["tri_n1"][prim]
+        n2 = tables["tri_n2"][prim]
+        uv0 = tables["tri_uv0"][prim]
+        uv1 = tables["tri_uv1"][prim]
+        uv2 = tables["tri_uv2"][prim]
+        ent = tables["tri_ent"][prim]
+        mat_id = tables["ent_mat"][ent.long()]
+        light_id = tables["ent_light"][ent.long()]
+    nraw = cross(e1, e2)
+    nlen = length(nraw)
+    face_n = nraw * safe_div(1.0, nlen)[..., None]
+    inv_area = safe_div(1.0, 0.5 * nlen)
+    w = (1.0 - u - v)[..., None]
+    ns = normalize(n0 * w + n1 * u[..., None] + n2 * v[..., None])
+    point = org + direction * t[..., None]
+    tex = uv0 * w + uv1 * u[..., None] + uv2 * v[..., None]
+    entering = dot(direction, face_n) <= 0.0
+    sgn = torch.where(entering, 1.0, -1.0).to(torch.float32)[..., None]
+    ns = ns * sgn
+    face_n = face_n * sgn
+    tb, bb = orthonormal_basis(ns)
+    return dict(point=point, n=ns, ng=face_n, is_entering=entering,
+                inv_area=inv_area, tex=tex, t=tb, b=bb,
+                ent=ent, mat_id=mat_id, light_id=light_id,
+                prim_coords=torch.stack([u, v], dim=-1))
+
+
+def _count(mask):
+    return torch.sum(mask.to(torch.float32))
+
+
+def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
+    """One wavefront bounce for all lanes of `st`.
+
+    st keys: org, dir, tmin, tmax, alive, seed, counter, inv_pdf, contrib,
+    depth, eta.  Returns (splat (N,3), st_next, quants): splat holds this
+    bounce's radiance contributions (miss / emissive / NEE) for alive lanes,
+    quants the per-bounce counters [hits, misses, shadow rays, occluded
+    shadow rays, bounce continuations].
+    """
+    tech = scene.technique
+    if tech.type != "path":
+        raise NotImplementedError(
+            f"technique '{tech.type}' is not ported to ignis_tpu_torch yet")
+    num_lights = scene.num_lights
+    inf_ids = [i for i, l in enumerate(scene.lights)
+               if l.infinite and not l.delta]
+
+    org, d = st["org"], st["dir"]
+    alive = st["alive"]
+    seed = st["seed"]
+    counter = st["counter"]
+    contrib = st["contrib"]
+    inv_pdf = st["inv_pdf"]
+    depth = st["depth"]
+    eta = st["eta"]
+    n = org.shape[0]
+    dev = org.device
+    zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    t, u, v, prim = _traverse_closest(scene, tables, org, d, st["tmin"],
+                                      st["tmax"], tri_mask, mask_bit=mask_bit)
+    hit = alive & (prim >= 0)
+    miss = alive & ~hit
+    splat = zeros3
+
+    # ---- surface for hit lanes (miss lanes: prim -1 -> row 0, t -> 1 so the
+    # masked-lane surface stays finite and the gathers stay in range)
+    prim_s = torch.clamp_min(prim, 0)
+    t_safe = torch.where(hit, t, torch.ones_like(t))
+    surf = _surface_at(tables, prim_s, org, d, t_safe, u, v)
+    mat_type, specular = prepare_surface(scene, tables, surf, d, org)
+
+    # ---- on_miss: infinite, non-delta lights
+    if inf_ids:
+        miss_color = zeros3
+        for lid in inf_ids:
+            emit, pdf_s = env_emission_and_pdf(scene, tables, lid, d)
+            if tech.enable_nee and num_lights > 0:
+                lpdf = tables["light_sel_pdf"][lid]
+                mis = 1.0 / (1.0 + inv_pdf * lpdf * pdf_s)
+            else:
+                mis = torch.ones(n, dtype=torch.float32, device=dev)
+            miss_color = miss_color + _handle_color(
+                contrib * emit * mis[..., None], tech.clamp)
+        splat = splat + torch.where(miss[..., None], miss_color, zeros3)
+
+    # ---- on_hit: emissive surfaces
+    if any(l.type in (1, 2, 8) for l in scene.lights):
+        is_emissive = surf["light_id"] >= 0
+        dot_n = -dot(d, surf["n"])
+        # non-emissive lanes carry light_id -1: clamp for the gathers
+        lidx = torch.clamp_min(surf["light_id"], 0)
+        pdf_s = light_pdf_direct_solid(
+            scene, tables, lidx, org, d, t_safe, -dot(d, surf["ng"]),
+            surf["prim_coords"], is_emissive)
+        radiance = _area_light_radiance(scene, tables, lidx)
+        if tech.enable_nee:
+            lpdf = light_select_pdf(scene, tables, lidx, org)
+            mis = 1.0 / (1.0 + inv_pdf * lpdf * pdf_s)
+        else:
+            mis = torch.ones(n, dtype=torch.float32, device=dev)
+        emit_ok = (hit & is_emissive & surf["is_entering"]
+                   & (dot_n > FLT_EPS))
+        ec = _handle_color(contrib * radiance * mis[..., None], tech.clamp)
+        splat = splat + torch.where(emit_ok[..., None], ec, zeros3)
+
+    # ---- on_shadow: NEE
+    do_nee = (tech.enable_nee and num_lights > 0)
+    if do_nee:
+        nee_active = hit & ~specular & (depth + 1 <= tech.max_depth)
+        lsel, sel_pdf, counter = select_light(
+            scene, tables, seed, counter, nee_active,
+            from_pos=surf["point"])
+        ls, counter = sample_light_direct(
+            scene, tables, lsel, surf["point"], surf["is_entering"],
+            seed, counter, nee_active)
+        pdf_l_s = ls["pdf_solid"] * sel_pdf
+        out_dir = -d
+        pdf_e_s = bsdf_pdf(scene, tables, mat_type, surf, ls["dir"], out_dir)
+        mis = torch.where(ls["delta"], torch.ones_like(pdf_e_s),
+                          1.0 / (1.0 + safe_div(pdf_e_s, pdf_l_s)))
+        factor = safe_div(ls["pdf_value"], pdf_l_s)
+        bsdf_c = bsdf_eval(scene, tables, mat_type, surf, ls["dir"], out_dir)
+        sc = _handle_color(
+            ls["intensity"] * contrib * bsdf_c * (mis * factor)[..., None],
+            tech.clamp)
+        shadow_valid = (nee_active & (pdf_l_s > FLT_EPS)
+                        & (ls["cos"] > FLT_EPS))
+        shadow_contrib = torch.where(shadow_valid[..., None], sc, zeros3)
+        s_org = surf["point"]
+        finite_dir = ls["pos"] - surf["point"]
+        s_dir = torch.where(ls["infinite"][..., None], ls["dir"], finite_dir)
+        s_tmax = torch.where(ls["infinite"],
+                             torch.full_like(t, FLT_MAX),
+                             torch.full_like(t, 1.0 - OFFSET))
+
+    # ---- on_bounce
+    can_bounce = hit & (depth + 1 <= tech.max_depth)
+    out_dir = -d
+    in_dir, b_pdf, b_weight, b_eta, b_valid, counter = bsdf_sample(
+        scene, tables, mat_type, surf, seed, counter, out_dir,
+        active=can_bounce)
+    new_contrib = contrib * b_weight
+    # russian roulette (pbrt v4 variant); detached: a sampling decision, not
+    # part of the integrand
+    rr_base = torch.amax(new_contrib * (eta * eta)[..., None], dim=-1)
+    rr_prob = torch.where(depth + 1 > tech.min_depth,
+                          torch.clamp(rr_base, 0.05, 0.95),
+                          torch.ones_like(rr_base)).detach()
+    u_rr, counter_rr = rng.next_f32(seed, counter)
+    rr_draw = can_bounce & b_valid
+    counter = torch.where(rr_draw, counter_rr, counter)
+    survive = u_rr < rr_prob
+    alive_next = rr_draw & survive
+    org_next = surf["point"]
+    dir_next = in_dir
+    contrib_next = new_contrib * safe_div(1.0, rr_prob)[..., None]
+    inv_pdf_next = torch.where(specular, torch.zeros_like(b_pdf),
+                               safe_div(1.0, b_pdf))
+    depth_next = depth + 1
+    eta_next = eta * b_eta
+
+    # ---- trace shadow rays & splat
+    if do_nee:
+        occ = _traverse_any(scene, tables, s_org, s_dir,
+                            torch.full_like(t, OFFSET), s_tmax, shadow_mask)
+        splat = splat + torch.where((shadow_valid & ~occ)[..., None],
+                                    shadow_contrib, zeros3)
+        n_shadow = _count(shadow_valid)
+        n_shadow_hit = _count(shadow_valid & occ)
+    else:
+        n_shadow = torch.zeros((), dtype=torch.float32, device=dev)
+        n_shadow_hit = torch.zeros((), dtype=torch.float32, device=dev)
+
+    quants = torch.stack([_count(hit), _count(miss), n_shadow, n_shadow_hit,
+                          _count(alive_next)])
+
+    an = alive_next
+    anc = alive_next[..., None]
+    st_next = dict(
+        org=torch.where(anc, org_next, org),
+        dir=torch.where(anc, dir_next, d),
+        tmin=torch.where(an, torch.full_like(t, OFFSET), st["tmin"]),
+        tmax=torch.where(an, torch.full_like(t, FLT_MAX), st["tmax"]),
+        alive=alive_next,
+        seed=seed,
+        counter=counter,
+        inv_pdf=torch.where(an, inv_pdf_next, inv_pdf),
+        contrib=torch.where(anc, contrib_next, contrib),
+        depth=torch.where(an, depth_next, depth),
+        eta=torch.where(an, eta_next, eta),
+    )
+    return splat, st_next, quants
+
+
+def _emit_camera(scene, x, y, sample, iteration, frame, user_seed,
+                 tables=None, spi=1):
+    """Camera emitter: seed, sampler draws, ray.  `sample` may be a per-lane
+    tensor; `iteration`, `frame`, `user_seed` are Python ints."""
+    seed = rng.create_seed(sample, iteration, frame, x, y, user_seed)
+    counter = torch.ones_like(seed)
+    rx, ry, counter = sample_pixel(scene.sampler, seed, counter)
+    nx, ny = pixel_coord_from_xy(x, y, scene.width, scene.height, rx, ry)
+    # camera pose from the parameter registry (__camera_* keys), so pose
+    # changes take effect between steps
+    dyn = None
+    reg = getattr(scene, "param_registry", None)
+    if tables is not None and reg and "__camera_eye" in reg \
+            and "params" in tables:
+        p = tables["params"]
+
+        def _sl(nm):
+            _, off, sz = reg[nm]
+            return p[off:off + sz]
+        dyn = (_sl("__camera_eye"), _sl("__camera_dir"), _sl("__camera_up"))
+    lens_uv = None
+    if scene.camera.aperture_radius > 0.0:
+        u1, counter = rng.next_f32(seed, counter)
+        u2, counter = rng.next_f32(seed, counter)
+        lens_uv = (u1, u2)
+    org, direction, tmin, tmax = generate_rays(scene.camera, nx, ny, dyn=dyn,
+                                               lens_uv=lens_uv)
+    return seed, counter, org, direction, tmin, tmax
+
+
+def _fresh_state(n, dev, **over):
+    f32 = dict(dtype=torch.float32, device=dev)
+    st = dict(
+        org=torch.zeros((n, 3), **f32),
+        dir=torch.cat([torch.zeros((n, 2), **f32), torch.ones((n, 1), **f32)],
+                      dim=1),
+        tmin=torch.zeros(n, **f32),
+        tmax=torch.zeros(n, **f32),
+        alive=torch.zeros(n, dtype=torch.bool, device=dev),
+        seed=torch.zeros(n, dtype=torch.int64, device=dev),
+        counter=torch.ones(n, dtype=torch.int64, device=dev),
+        inv_pdf=torch.zeros(n, **f32),
+        contrib=torch.ones((n, 3), **f32),
+        depth=torch.ones(n, dtype=torch.int32, device=dev),
+        eta=torch.ones(n, **f32),
+    )
+    st.update(over)
+    return st
+
+
+_LANE_KEYS = ("org", "dir", "tmin", "tmax", "alive", "seed", "counter",
+              "inv_pdf", "contrib", "depth", "eta")
+
+
+def _compact(state, tail_cap, extra=()):
+    """Alive lanes first (stable), cut to `tail_cap` lanes."""
+    order = torch.argsort((~state["alive"]).to(torch.int8),
+                          stable=True)[:tail_cap]
+    return order, {k: state[k][order] for k in _LANE_KEYS + tuple(extra)}
+
+
+def trace_wave(scene, tables, x, y, sample, iteration, frame, user_seed,
+               org=None, direction=None, tmin=None, tmax=None,
+               differentiable=False):
+    """Trace one wave of rays to completion; returns per-lane radiance (N, 3).
+
+    x, y: (N,) integer tensors; their device is the device of the run.
+    If org/direction are given, acts as the list emitter: no pixel-sampler
+    draws, rays used as provided.
+    """
+    if differentiable:
+        raise NotImplementedError(
+            "trace_wave(differentiable=True) is not ported to "
+            "ignis_tpu_torch yet")
+    _check_tables(tables)
+    n = x.shape[0]
+    dev = x.device
+
+    if org is None:
+        seed, counter, org, direction, tmin, tmax = _emit_camera(
+            scene, x, y, sample, iteration, frame, user_seed, tables)
+    else:
+        seed = rng.create_seed(sample, iteration, frame, x, y, user_seed)
+        counter = torch.ones_like(seed)
+        f32 = dict(dtype=torch.float32, device=dev)
+        tmin = torch.broadcast_to(torch.as_tensor(tmin, **f32), (n,))
+        tmax = torch.broadcast_to(torch.as_tensor(tmax, **f32), (n,))
+
+    state = _fresh_state(n, dev, org=org, dir=direction, tmin=tmin, tmax=tmax,
+                         alive=torch.ones(n, dtype=torch.bool, device=dev),
+                         seed=seed, counter=counter)
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    trivial = _flags_trivial(scene)
+    mask_cam = None if trivial else _tri_mask_for(tables, RAY_CAMERA)
+    mask_bounce = None if trivial else _tri_mask_for(tables, RAY_BOUNCE)
+    shadow_mask = (None if _flags_trivial(scene, RAY_SHADOW)
+                   else _tri_mask_for(tables, RAY_SHADOW))
+
+    bounce_index = 0
+
+    def bounce(state, accum):
+        first = bounce_index == 0
+        tri_mask = mask_cam if first else mask_bounce
+        mbit = MASK_CAMERA if first else MASK_BOUNCE
+        splat, st_next, _q = _bounce_core(scene, tables, state, tri_mask,
+                                          shadow_mask, mask_bit=mbit)
+        return st_next, accum + splat
+
+    tail_cap = 2048
+    if n <= tail_cap * 2:
+        while bool(state["alive"].any()):
+            state, accum = bounce(state, accum)
+            bounce_index += 1
+        return accum
+
+    # tail cascade: full-width waves while busy, then compact the survivors
+    # into a narrow wave and add their radiance back per lane
+    while int(state["alive"].sum()) > tail_cap:
+        state, accum = bounce(state, accum)
+        bounce_index += 1
+    order, tail = _compact(state, tail_cap)
+    tail_accum = torch.zeros((tail_cap, 3), dtype=torch.float32, device=dev)
+    while bool(tail["alive"].any()):
+        tail, tail_accum = bounce(tail, tail_accum)
+        bounce_index += 1
+    # in place: `order` holds distinct lanes
+    accum.index_add_(0, order, tail_accum)
+    return accum
+
+
+def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
+                     spi=1, tail_capacity=4096, work_mode="arith"):
+    """Render `spi` samples of every pixel through a fixed-capacity
+    regenerating wave.
+
+    Returns (framebuffer sum (H*W, 3) for this iteration, stats (9,)).  Dead
+    lanes immediately pick up fresh camera work, so tail bounces of long
+    paths do not run at low occupancy.
+
+    The work list is the canonical pixel x sample enumeration, derived
+    arithmetically from the work id, and radiance lands in a per-work-item
+    slot buffer (the reference's work_mode="arith"; its explicit work-list
+    mode is not ported and raises).
+
+    Tail cascade: once the work list is exhausted and the survivor count fits
+    `tail_capacity`, the alive lanes are compacted into a narrow wave.
+
+    stats: [wave iters, alive-lane visits, tail iters, camera rays emitted,
+    hits, misses, shadow rays, occluded shadows, bounce continuations].
+    """
+    if work_mode != "arith":
+        raise NotImplementedError(
+            f"render_wavefront(work_mode='{work_mode}') is not ported to "
+            "ignis_tpu_torch yet")
+    _check_tables(tables)
+    npix = scene.width * scene.height
+    w_total = npix * spi
+    c = int(capacity)
+    dev = tables["tri_v0"].device
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    trivial = _flags_trivial(scene)
+    # mixed camera/bounce lanes per wave: exact per-ray visibility needs
+    # camera == bounce masks (the Runtime refuses scenes that violate it)
+    prim_mask = None if trivial else _tri_mask_for(tables, RAY_BOUNCE)
+    shadow_mask = (None if _flags_trivial(scene, RAY_SHADOW)
+                   else _tri_mask_for(tables, RAY_SHADOW))
+
+    state = _fresh_state(c, dev)
+    # `pixel` holds the framebuffer row of the lane: its work-item id.  Idle
+    # lanes park on the c spare rows past the end of `fb`, one each, so
+    # `index_add_` never goes out of range.
+    state["pixel"] = w_total + torch.arange(c, dtype=torch.int64, device=dev)
+    fb = torch.zeros((w_total + c, 3), **f32)
+    stats = torch.zeros(9, **f32)
+    next_work = 0
+    zero = torch.zeros((), **f32)
+    one = torch.ones((), **f32)
+
+    def splat_into_fb(st, splat):
+        # in place: fb is the largest buffer of the step
+        fb.index_add_(0, st["pixel"],
+                      torch.where(st["alive"][..., None], splat,
+                                  torch.zeros_like(splat)))
+
+    def body(st, next_work):
+        # ---- regenerate: dead lanes pull the next work items
+        dead = ~st["alive"]
+        rank = torch.cumsum(dead.to(torch.int64), dim=0) - 1
+        wid = next_work + rank
+        take = dead & (wid < w_total)
+        wid_c = torch.clamp(wid, 0, w_total - 1)
+        pix = wid_c % npix
+        gx = pix % scene.width
+        gy = pix // scene.width
+        gs = wid_c // npix
+        seed_n, counter_n, org_n, dir_n, tmin_n, tmax_n = _emit_camera(
+            scene, gx, gy, gs, iteration, frame, user_seed, tables, spi)
+
+        sel = take[..., None]
+        st = dict(st)
+        st["org"] = torch.where(sel, org_n, st["org"])
+        st["dir"] = torch.where(sel, dir_n, st["dir"])
+        st["tmin"] = torch.where(take, tmin_n, st["tmin"])
+        st["tmax"] = torch.where(take, tmax_n, st["tmax"])
+        st["seed"] = torch.where(take, seed_n, st["seed"])
+        st["counter"] = torch.where(take, counter_n, st["counter"])
+        st["inv_pdf"] = torch.where(take, torch.zeros_like(st["inv_pdf"]),
+                                    st["inv_pdf"])
+        st["contrib"] = torch.where(sel, torch.ones_like(st["contrib"]),
+                                    st["contrib"])
+        st["depth"] = torch.where(take, torch.ones_like(st["depth"]),
+                                  st["depth"])
+        st["eta"] = torch.where(take, torch.ones_like(st["eta"]), st["eta"])
+        st["pixel"] = torch.where(take, wid_c, st["pixel"])
+        st["alive"] = st["alive"] | take
+        n_take = _count(take)
+
+        # ---- one bounce for the whole wave
+        splat, st_next, q = _bounce_core(scene, tables, st, prim_mask,
+                                         shadow_mask)
+        splat_into_fb(st, splat)
+        st_next["pixel"] = st["pixel"]
+        inc = torch.cat([torch.stack([one, _count(st["alive"]), zero,
+                                      n_take]), q])
+        return st_next, inc, n_take
+
+    def fb_out():
+        # per-work-item slots -> per-pixel sums
+        return fb[:w_total].reshape(spi, npix, 3).sum(dim=0)
+
+    tail_cap = int(min(tail_capacity, c))
+    wide_only = tail_cap >= c
+    while True:
+        if next_work >= w_total:
+            n_alive = int(state["alive"].sum())       # host sync
+            if n_alive == 0 or (not wide_only and n_alive <= tail_cap):
+                break
+        state, inc, n_take = body(state, next_work)
+        stats = stats + inc
+        if next_work < w_total:
+            next_work += int(n_take)                  # host sync
+    if wide_only:
+        return fb_out(), stats
+
+    # ---- compact survivors into the narrow tail wave (alive lanes first)
+    _, tail = _compact(state, tail_cap, extra=("pixel",))
+    while bool(tail["alive"].any()):                  # host sync
+        splat, st_next, q = _bounce_core(scene, tables, tail, prim_mask,
+                                         shadow_mask)
+        splat_into_fb(tail, splat)
+        st_next["pixel"] = tail["pixel"]
+        stats = stats + torch.cat(
+            [torch.stack([zero, _count(tail["alive"]), one, zero]), q])
+        tail = st_next
+    return fb_out(), stats
+
+
+def _area_light_radiance(scene, tables, light_idx):
+    """Radiance color of area lights by id (layout per light type)."""
+    data = gather_rows(tables["light_data"], light_idx)
+    ltype = gather_rows(tables["light_type"], light_idx)
+    return torch.where((ltype == LIGHT_AREA_PLANE)[..., None],
+                       data[:, 13:16], data[:, 0:3])
