@@ -5,10 +5,12 @@
 
 It builds the CUDA kernels from `ignis_tpu_torch/csrc/` with `nvcc`, holds
 each kernel against its plain PyTorch version on the card, and drives the
-port's main path (`Runtime.step` of the `path` technique) on the two headline
-scenes: the demo box through the Baldwin-Weber kernels and the 512,002-triangle
-field through the packet-BVH kernels.  Every phase prints one JSON line with
-its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
+port's main path (`Runtime.step` of the `path` technique) on four scenes: the
+demo box through the Baldwin-Weber kernels, the 512,002-triangle field through
+the packet-BVH kernels, 1024 instances of one mesh beside analytic spheres
+through the two-level kernel, and a 32,002-triangle soup with un-accelerated
+tables through the whole-soup Moeller-Trumbore kernel.  Every phase prints one
+JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
 """
@@ -25,14 +27,16 @@ import numpy as np
 import torch
 
 N_RAYS = 65536            # rays per kernel check, = the wave capacity
-FILM = 512                # film width and height of both headline scenes
+FILM = 512                # film width and height of the headline scenes
 BIG_SCENE = dict(n_spheres=25, subdiv=5)   # 512,002 triangles
+SWEEP_SCENE = dict(n_spheres=25, subdiv=3)  # 32,002 triangles, no tables
 T_REL, UV_ABS = 1e-5, 1e-4  # kernel vs plain: |dt|/max(1,|t|), |du|, |dv|
 MEAN_REL = 0.02           # kernel render vs plain render, image mean
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 # float32 operations per test, counted from the kernels' sources
 OPS_BOX, OPS_BW_TRI, OPS_MT_TRI = 25, 48, 54
+OPS_TO_LOCAL = 36         # a ray into an instance's space, 3 reciprocals
 
 
 def emit(phase, t0, **kw):
@@ -144,7 +148,8 @@ def compare_closest(name, got, ref):
 def check_kernels(rt, closest, closest_plain, any_, any_plain, dev, bound_fn):
     """Hold one module's two kernels against their plain versions on coherent
     and incoherent rays under the camera, bounce and shadow masks, and time
-    them.  Returns {kernel name: record}."""
+    them.  Each of the four takes (tables, org, d, tmin, tmax, mask_bit=);
+    the plain ones also `work=`.  Returns {kernel name: record}."""
     from ignis_tpu_torch.ops.packet_bvh import (MASK_BOUNCE, MASK_CAMERA,
                                                 MASK_SHADOW)
     tb = rt.tables
@@ -225,6 +230,76 @@ def pb_bound(rt, work, n, is_any):
     return _bound(nbytes, ops)
 
 
+def tlas_bound(rt, work, n, is_any):
+    tb = rt.tables
+    nbytes = sum(tb[k].numel() for k in ("tl_top", "tl_tris", "tl_clust",
+                                         "tl_inst")) * 4 \
+        + n * 32 + n * (1 if is_any else 20)
+    ops = ((work["inner_visits"] * 8 + work["instance_tests"]
+            + work["cluster_tests"]) * OPS_BOX
+           + work["instances_entered"] * OPS_TO_LOCAL
+           + work["tri_tests"] * OPS_BW_TRI)
+    return _bound(nbytes, ops)
+
+
+def mt_bound(rt, work, n, is_any):
+    ntris = rt.tables["tri_v0"].shape[0]
+    nbytes = ntris * 37 + n * 32 + n * (1 if is_any else 16)
+    return _bound(nbytes, work["tri_tests"] * OPS_MT_TRI)
+
+
+def tlas_adapters(tlas):
+    """`ops.tlas` in the (t, u, v, prim) shape `check_kernels` compares: the
+    instance is folded into prim as instance * pool_rows + pool_row."""
+    def fold(tb, out):
+        t, u, v, row, inst = out
+        return t, u, v, torch.where(row >= 0,
+                                    inst * tb["tl_tris"].shape[0] + row, row)
+
+    def tlas_closest(tb, *rays, mask_bit):
+        return fold(tb, tlas.tlas_closest(tb, *rays, mask_bit=mask_bit))
+
+    def tlas_closest_plain(tb, *rays, mask_bit=0xF, work=None):
+        return fold(tb, tlas.tlas_closest_plain(tb, *rays, mask_bit=mask_bit,
+                                                work=work))
+    return tlas_closest, tlas_closest_plain, tlas.tlas_any, tlas.tlas_any_plain
+
+
+def mt_adapters(mt, tb):
+    """`ops.mt_intersect` behind the (tables, rays, mask_bit=) signature.  Its
+    visibility is a bool per triangle: none for camera rays, the scene's own
+    flags for bounce rays, and every third triangle switched off for shadow
+    rays, so that the mask is exercised.  A closest-hit ray tests every
+    triangle; an any-hit ray stops at its first hit."""
+    from ignis_tpu_torch.ops.packet_bvh import (MASK_BOUNCE, MASK_CAMERA,
+                                                MASK_SHADOW)
+    from ignis_tpu_torch.render.integrator import _tri_mask_for
+    ntris = tb["tri_v0"].shape[0]
+    thirds = torch.arange(ntris, device=tb["tri_v0"].device) % 3 != 0
+    masks = {MASK_CAMERA: None, MASK_BOUNCE: _tri_mask_for(tb, MASK_BOUNCE),
+             MASK_SHADOW: thirds, 0xF: None}
+    geo = lambda tb: (tb["tri_v0"], tb["tri_e1"], tb["tri_e2"])
+
+    def mt_closest(tb, *rays, mask_bit):
+        return mt.mt_closest(*rays, *geo(tb), tri_mask=masks[mask_bit])
+
+    def mt_closest_plain(tb, *rays, mask_bit=0xF, work=None):
+        if work is not None:
+            work["tri_tests"] = rays[0].shape[0] * ntris
+        return mt.mt_closest_plain(*rays, *geo(tb), tri_mask=masks[mask_bit])
+
+    def mt_any(tb, *rays, mask_bit):
+        return mt.mt_any(*rays, *geo(tb), tri_mask=masks[mask_bit])
+
+    def mt_any_plain(tb, *rays, mask_bit=0xF, work=None):
+        first = mt._sweep_plain(*rays, *geo(tb), masks[mask_bit], True)[3]
+        if work is not None:
+            work["tri_tests"] = int(torch.where(first >= 0, first + 1,
+                                                ntris).sum())
+        return first >= 0
+    return mt_closest, mt_closest_plain, mt_any, mt_any_plain
+
+
 def _bound(nbytes, ops):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
     return dict(bound_ms=max(tb, to),
@@ -237,6 +312,72 @@ def reset_counts(fns):
         f.launches = 0
 
 
+# the kernels each main path must launch, once each in every wave iteration
+PATH_KERNELS = {
+    "demo": ("bw_closest", "bw_any"),
+    "big": ("packet_bvh_closest", "packet_bvh_any"),
+    "instanced": ("tlas_closest", "tlas_any", "bw_closest", "bw_any"),
+    "sweep": ("mt_closest", "mt_any"),
+}
+
+
+def timed_steps(path, rt, steps, spi, wrappers):
+    """Drive one main path: counts to 0, a first step and `steps` timed
+    steps, counts read.  The launches of the path's kernels must each equal
+    the wave iterations, a wave must be as wide as the kernel checks were,
+    and the frame must be finite.  Returns a dict of
+    first-step seconds, seconds per step, launches and the wave's counters."""
+    reset_counts(wrappers)
+    torch.cuda.synchronize()
+    ta = time.perf_counter()
+    rt.step(spi=spi)                         # first step, also the warm-up
+    first = time.perf_counter() - ta
+    ta = time.perf_counter()
+    for _ in range(steps):
+        rt.step(spi=spi)
+    dt = (time.perf_counter() - ta) / steps
+    launches = {f.__name__: f.launches for f in wrappers}
+    img = rt.currentFrame()
+    if img.shape != (rt.height, rt.width, 3) or not np.isfinite(img).all():
+        fail(f"{path} frame is not finite (height, width, 3)")
+    ds = rt._dev_stats.cpu().numpy()
+    iters = int(ds[0] + ds[2])
+    names = PATH_KERNELS[path]
+    if iters <= 0 or any(launches[k] != iters for k in names):
+        fail(f"{path}: launches {launches} do not match {iters} wave "
+             f"iterations (one launch of each of {names} in each)")
+    if rt._dev_stats_capacity != N_RAYS:
+        fail(f"{path}: a wave holds {rt._dev_stats_capacity} rays, not the "
+             f"{N_RAYS} its kernels were checked and timed at")
+    nsamp = rt.width * rt.height * spi
+    return dict(
+        steps=steps, spi=spi, film=[rt.width, rt.height],
+        first_step_seconds=round(first, 4), step_seconds=round(dt, 4),
+        msamples_per_s=round(nsamp / dt / 1e6, 4), launches=launches,
+        wave_iterations=int(ds[0]), tail_iterations=int(ds[2]),
+        capacity=int(rt._dev_stats_capacity),
+        occupancy=float(ds[1] / max(iters, 1) / rt._dev_stats_capacity),
+        mean=float(img.mean()))
+
+
+def kernel_and_plain_means(path, rt, spi, patches, mean_kernel=None):
+    """Image mean with the kernels against the mean with `patches` ({name in
+    the integrator: plain version}) in their place, on `rt` at the same seed.
+    `mean_kernel`, when given, is a kernel render made elsewhere (a larger
+    film of the same scene); else `rt` renders it too."""
+    from ignis_tpu_torch.render import integrator
+    if mean_kernel is None:
+        mean_kernel = render_mean(rt, spi)
+    with mock.patch.multiple(integrator, **patches):
+        mean_plain = render_mean(rt, spi)
+    rel = abs(mean_kernel - mean_plain) / abs(mean_plain)
+    if rel > MEAN_REL:
+        fail(f"{path}: kernel render mean {mean_kernel} vs plain-version "
+             f"render {mean_plain}")
+    return dict(mean_kernel=mean_kernel, mean_plain=mean_plain, rel_diff=rel,
+                plain_film=[rt.width, rt.height])
+
+
 def render_mean(rt, spi):
     rt.reset()
     rt.step(spi=spi)
@@ -244,6 +385,21 @@ def render_mean(rt, spi):
     if not np.isfinite(img).all():
         fail("render holds non-finite values")
     return float(img.mean())
+
+
+def sweep_runtime(film, dev):
+    """The sweep scene's compiled tables as they are, plus the shading rows:
+    neither Baldwin-Weber nor packet rows, so the whole-soup kernel runs."""
+    from ignis_tpu_torch.api import Runtime, pack_tri_shade
+    from ignis_tpu_torch.scene.compile import load_and_compile
+    from ignis_tpu_torch.scenes import big_scene
+    scene = load_and_compile(big_scene(**SWEEP_SCENE), film, film)
+    tables = dict(scene.tables)
+    tables["tri_shade"] = pack_tri_shade(tables)
+    rt = Runtime.from_compiled(scene, tables, device=dev)
+    if "bw_tris" in rt.tables or "pb_rows" in rt.tables:
+        fail("the sweep scene's tables are accelerated")
+    return rt
 
 
 def main():
@@ -256,10 +412,11 @@ def main():
     from ignis_tpu_torch import native
     from ignis_tpu_torch.api import Runtime
     from ignis_tpu_torch.ops import bw_intersect as bw
+    from ignis_tpu_torch.ops import mt_intersect as mt
     from ignis_tpu_torch.ops import packet_bvh as pb
-    from ignis_tpu_torch.render import integrator
+    from ignis_tpu_torch.ops import tlas
     from ignis_tpu_torch.scene.compile import load_and_compile
-    from ignis_tpu_torch.scenes import big_scene, demo_scene
+    from ignis_tpu_torch.scenes import big_scene, demo_scene, instanced_scene
 
     # ---- 1. device
     t0 = time.perf_counter()
@@ -281,7 +438,8 @@ def main():
                 if "registers" in l or "spill" in l])
 
     wrappers = (bw.bw_closest, bw.bw_any, pb.packet_bvh_closest,
-                pb.packet_bvh_any)
+                pb.packet_bvh_any, tlas.tlas_closest, tlas.tlas_any,
+                mt.mt_closest, mt.mt_any)
 
     # ---- scenes: compile and build the tables once
     t0 = time.perf_counter()
@@ -290,9 +448,27 @@ def main():
     rt_big = Runtime(big_scene(**BIG_SCENE), width=FILM, height=FILM,
                      device=dev)
     sec = rt_big.stats.sections
+    t2 = time.perf_counter()
+    rt_inst = Runtime(instanced_scene(), width=FILM, height=FILM, device=dev)
+    isec = rt_inst.stats.sections
+    t3 = time.perf_counter()
+    rt_sweep = sweep_runtime(FILM, dev)
     emit("scenes", t0, demo_seconds=round(t1 - t0, 3),
+         instanced_seconds=round(t3 - t2, 3),
+         instanced_compile_seconds=round(isec["loading"].total, 3),
+         instanced_table_build_seconds=round(
+             isec["build_bvh"].total + isec["build_traversal_tables"].total
+             + isec["build_tlas"].total, 3),
+         instances=int(rt_inst.tables["tl_inst"].shape[0]),
+         pool_rows=int(rt_inst.tables["tl_tris"].shape[0]),
+         instanced_soup_tris=int(rt_inst.tables["tri_v0"].shape[0]),
+         analytic_spheres=int(rt_inst.tables["sph_rows"].shape[0]),
+         tl_top=list(rt_inst.tables["tl_top"].shape),
+         tl_depth=int(rt_inst.tables["tl_depth"]),
+         sweep_seconds=round(time.perf_counter() - t3, 3),
+         sweep_tris=int(rt_sweep.tables["tri_v0"].shape[0]),
          demo_tris=int(rt_demo.tables["tri_v0"].shape[0]),
-         big_seconds=round(time.perf_counter() - t1, 3),
+         big_seconds=round(t2 - t1, 3),
          big_compile_seconds=round(sec["loading"].total, 3),
          big_table_build_seconds=round(
              sec["build_bvh"].total + sec["build_traversal_tables"].total, 3),
@@ -308,69 +484,27 @@ def main():
     recs.update(check_kernels(rt_big, pb.packet_bvh_closest,
                               pb.packet_bvh_closest_plain, pb.packet_bvh_any,
                               pb.packet_bvh_any_plain, dev, pb_bound))
+    recs.update(check_kernels(rt_inst, *tlas_adapters(tlas), dev, tlas_bound))
+    recs.update(check_kernels(rt_sweep, *mt_adapters(mt, rt_sweep.tables),
+                              dev, mt_bound))
     emit("kernels", t0, tolerance=dict(t_rel=T_REL, uv_abs=UV_ABS),
          kernels=recs)
 
     # ---- 4. demo: the Baldwin-Weber path
     t0 = time.perf_counter()
-    reset_counts(wrappers)
-    torch.cuda.synchronize()
-    ta = time.perf_counter()
-    rt_demo.step(spi=4)
-    first = time.perf_counter() - ta
-    ta = time.perf_counter()
-    rt_demo.step(spi=4)
-    second = time.perf_counter() - ta
-    demo_launches = {f.__name__: f.launches for f in wrappers}
-    img = rt_demo.currentFrame()
-    if img.shape != (FILM, FILM, 3) or not np.isfinite(img).all():
-        fail("demo frame is not finite (FILM, FILM, 3)")
-    ds = rt_demo._dev_stats.cpu().numpy()
-    iters = int(ds[0] + ds[2])
-    if not (demo_launches["bw_closest"] == demo_launches["bw_any"] == iters
-            and iters > 0):
-        fail(f"demo: launches {demo_launches} do not match {iters} wave "
-             "iterations (one closest-hit and one any-hit launch each)")
-    mean_kernel = render_mean(rt_demo, 4)
-    with mock.patch.object(integrator, "bw_closest", bw.bw_closest_plain), \
-            mock.patch.object(integrator, "bw_any", bw.bw_any_plain):
-        mean_plain = render_mean(rt_demo, 4)
-    rel = abs(mean_kernel - mean_plain) / abs(mean_plain)
-    if rel > MEAN_REL:
-        fail(f"demo: kernel render mean {mean_kernel} vs plain {mean_plain}")
-    nsamp = FILM * FILM * 4
-    emit("demo", t0, first_step_seconds=round(first, 4),
-         step_seconds=round(second, 4),
-         msamples_per_s=round(nsamp / second / 1e6, 4),
-         first_step_msamples_per_s=round(nsamp / first / 1e6, 4),
-         wave_iterations=int(ds[0]), tail_iterations=int(ds[2]),
-         occupancy=float(ds[1] / max(ds[0] + ds[2], 1) / rt_demo._dev_stats_capacity),
-         launches=demo_launches, mean_kernel=mean_kernel,
-         mean_plain=mean_plain, rel_diff=rel, stats=rt_demo.dumpStats())
+    runs = {}
+    runs["demo"] = timed_steps("demo", rt_demo, 1, 4, wrappers)
+    means = kernel_and_plain_means("demo", rt_demo, 4, dict(
+        bw_closest=bw.bw_closest_plain, bw_any=bw.bw_any_plain))
+    emit("demo", t0, **runs["demo"], **means, stats=rt_demo.dumpStats())
 
     # ---- 5. big: the packet-BVH path
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(wrappers)
-    rt_big.step(spi=1)                       # warm-up
-    torch.cuda.synchronize()
-    ta = time.perf_counter()
-    for _ in range(3):
-        rt_big.step(spi=1)
-    dt = time.perf_counter() - ta
-    big_launches = {f.__name__: f.launches for f in wrappers}
-    img = rt_big.currentFrame()
-    if img.shape != (FILM, FILM, 3) or not np.isfinite(img).all():
-        fail("big frame is not finite (FILM, FILM, 3)")
-    mean_kernel = float(img.mean())
-    ds = rt_big._dev_stats.cpu().numpy()
-    iters = int(ds[0] + ds[2])
-    if not (big_launches["packet_bvh_closest"] == big_launches["packet_bvh_any"]
-            == iters and iters > 0):
-        fail(f"big: launches {big_launches} do not match {iters} wave "
-             "iterations")
+    runs["big"] = timed_steps("big", rt_big, 3, 1, wrappers)
     peak = torch.cuda.max_memory_allocated()
-    # the same scene at a quarter of the film size (128x128) through the plain traversal, on the card
+    # the same scene at a quarter of the film size through the plain
+    # traversal, on the card
     small = load_and_compile(big_scene(**BIG_SCENE), FILM // 4, FILM // 4)
     small_tables = dict(small.tables)
     # the traversal and shading tables do not depend on the film: reuse them
@@ -378,24 +512,45 @@ def main():
         v = rt_big.tables[k]
         small_tables[k] = v.cpu().numpy() if torch.is_tensor(v) else v
     rt_small = Runtime.from_compiled(small, small_tables, device=dev)
-    with mock.patch.object(integrator, "packet_bvh_closest",
-                           pb.packet_bvh_closest_plain), \
-            mock.patch.object(integrator, "packet_bvh_any",
-                              pb.packet_bvh_any_plain):
-        mean_plain = render_mean(rt_small, 4)
-    rel = abs(mean_kernel - mean_plain) / abs(mean_plain)
-    if rel > MEAN_REL:
-        fail(f"big: kernel render mean {mean_kernel} vs plain 128x128 render "
-             f"{mean_plain}")
-    emit("big", t0, steps=3, step_seconds=round(dt / 3, 4),
-         msamples_per_s=round(FILM * FILM * 3 / dt / 1e6, 4),
-         launches=big_launches, wave_iterations=int(ds[0]),
-         tail_iterations=int(ds[2]), peak_memory_bytes=int(peak),
-         mean_kernel=mean_kernel, mean_plain_128=mean_plain, rel_diff=rel)
+    means = kernel_and_plain_means("big", rt_small, 4, dict(
+        packet_bvh_closest=pb.packet_bvh_closest_plain,
+        packet_bvh_any=pb.packet_bvh_any_plain),
+        mean_kernel=runs["big"]["mean"])
+    emit("big", t0, **runs["big"], peak_memory_bytes=int(peak), **means)
 
-    # ---- the kernels line: launches are those of the main path's runs
-    main_launches = {**{k: v for k, v in demo_launches.items() if v},
-                     **{k: v for k, v in big_launches.items() if v}}
+    # ---- 6. instanced: the two-level kernel beside Baldwin-Weber (floor and
+    # lamp) and the analytic spheres
+    t0 = time.perf_counter()
+    runs["instanced"] = timed_steps("instanced", rt_inst, 3, 1, wrappers)
+    # kernels against plain versions on the same scene at a quarter of the
+    # film size, same seed
+    rt_small = Runtime(instanced_scene(), width=FILM // 4, height=FILM // 4,
+                       device=dev)
+    means = kernel_and_plain_means("instanced", rt_small, 4, dict(
+        tlas_closest=tlas.tlas_closest_plain, tlas_any=tlas.tlas_any_plain,
+        bw_closest=bw.bw_closest_plain, bw_any=bw.bw_any_plain))
+    emit("instanced", t0, **runs["instanced"], **means,
+         stats=rt_inst.dumpStats())
+
+    # ---- 7. sweep: un-accelerated tables through the Moeller-Trumbore
+    # kernel, at the full film, so a wave is N_RAYS wide as in the check above
+    t0 = time.perf_counter()
+    runs["sweep"] = timed_steps("sweep", rt_sweep, 2, 1, wrappers)
+    # kernels against plain versions at a quarter of the film size, same seed
+    means = kernel_and_plain_means(
+        "sweep", sweep_runtime(FILM // 4, dev), 1, dict(
+            mt_closest=mt.mt_closest_plain, mt_any=mt.mt_any_plain))
+    emit("sweep", t0, **runs["sweep"], **means)
+
+    # ---- the kernels line: launches are those of the main paths' runs, in
+    # all and for each path that has to launch the kernel
+    by_path = {}
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            n = runs[path]["launches"][name]
+            if n <= 0:
+                fail(f"kernel {name} was not launched on path {path}")
+            by_path.setdefault(name, {})[path] = n
     meta = {
         "bw_closest": ("ignis_tpu_torch/csrc/bw_intersect.cu",
                        "ignis_tpu/ops/bw_intersect.py:295"),
@@ -405,16 +560,25 @@ def main():
                                "ignis_tpu/ops/pallas_bvh.py:507"),
         "packet_bvh_any": ("ignis_tpu_torch/csrc/packet_bvh.cu",
                            "ignis_tpu/ops/pallas_bvh.py:507"),
+        "tlas_closest": ("ignis_tpu_torch/csrc/tlas.cu",
+                         "ignis_tpu/ops/bw_tlas.py:437"),
+        "tlas_any": ("ignis_tpu_torch/csrc/tlas.cu",
+                     "ignis_tpu/ops/bw_tlas.py:437"),
+        "mt_closest": ("ignis_tpu_torch/csrc/mt_intersect.cu",
+                       "ignis_tpu/ops/pallas_intersect.py:144"),
+        "mt_any": ("ignis_tpu_torch/csrc/mt_intersect.cu",
+                   "ignis_tpu/ops/pallas_intersect.py:167"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r = recs[name]
-        launches = main_launches.get(name, 0)
-        if launches <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+        if name not in by_path:
+            fail(f"kernel {name} is on no main path")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=sum(by_path[name].values()),
+            launches_by_path=by_path[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             device_ms=r["device_ms"],

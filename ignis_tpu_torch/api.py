@@ -67,33 +67,45 @@ def pack_tri_shade(tables):
     return out
 
 
-def build_accel_tables(tables, stats=None):
+def build_accel_tables(tables, stats=None, instanced=None):
     """Host-side acceleration tables for a compiled scene's numpy tables:
-    SAH BVH, then packet-BVH rows (>= 4096 triangles) or Baldwin-Weber rows
-    (fewer), then the packed shading rows.  Returns a new dict."""
+    for the world-space soup the SAH BVH, then packet-BVH rows (>= 4096
+    triangles) or Baldwin-Weber rows (fewer), then the packed shading rows;
+    for `instanced` (a compiled scene's `instanced` dict of unique shapes and
+    instance records, or None) the two-level tables of `ops.tlas`.  Returns a
+    new dict."""
     from ignis_tpu_torch.ops.bvh import build_bvh
     tables = dict(tables)
     ntris = tables["tri_v0"].shape[0]
-    if ntris == 0:
-        return tables
-    geo = (np.asarray(tables["tri_v0"]), np.asarray(tables["tri_e1"]),
-           np.asarray(tables["tri_e2"]))
-    t0 = time.perf_counter()
-    bvh = build_bvh(*geo)
-    t1 = time.perf_counter()
-    tri_flags = np.asarray(tables["ent_flags"])[np.asarray(tables["tri_ent"])]
-    if ntris >= _PB_MIN_TRIS:
-        from ignis_tpu_torch.ops.packet_bvh import build_packet_bvh
-        tables.update(build_packet_bvh(bvh, *geo, tri_flags))
-    else:
-        from ignis_tpu_torch.ops.bw_intersect import bw_tables
-        tables.update(bw_tables(*geo, tri_flags,
-                                order=np.asarray(bvh.tri_order)))
-    t2 = time.perf_counter()
-    tables["tri_shade"] = pack_tri_shade(tables)
-    if stats is not None:
-        stats.record("build_bvh", t1 - t0)
-        stats.record("build_traversal_tables", t2 - t1)
+    if ntris > 0:
+        geo = (np.asarray(tables["tri_v0"]), np.asarray(tables["tri_e1"]),
+               np.asarray(tables["tri_e2"]))
+        t0 = time.perf_counter()
+        bvh = build_bvh(*geo)
+        t1 = time.perf_counter()
+        tri_flags = np.asarray(tables["ent_flags"])[
+            np.asarray(tables["tri_ent"])]
+        if ntris >= _PB_MIN_TRIS:
+            from ignis_tpu_torch.ops.packet_bvh import build_packet_bvh
+            tables.update(build_packet_bvh(bvh, *geo, tri_flags))
+        else:
+            from ignis_tpu_torch.ops.bw_intersect import bw_tables
+            tables.update(bw_tables(*geo, tri_flags,
+                                    order=np.asarray(bvh.tri_order)))
+        t2 = time.perf_counter()
+        # the shading rows exist only beside a soup
+        tables["tri_shade"] = pack_tri_shade(tables)
+        if stats is not None:
+            stats.record("build_bvh", t1 - t0)
+            stats.record("build_traversal_tables", t2 - t1)
+    if instanced:
+        from ignis_tpu_torch.ops.tlas import build_tlas, check_encoding
+        t0 = time.perf_counter()
+        tables.update(build_tlas(instanced["shapes"], instanced["records"]))
+        nsph = tables["sph_rows"].shape[0] if "sph_rows" in tables else 0
+        check_encoding(ntris, tables, nsph)
+        if stats is not None:
+            stats.record("build_tlas", time.perf_counter() - t0)
     return tables
 
 
@@ -106,7 +118,8 @@ class Runtime:
         scene = load_and_compile(source, width, height)
         check_slice(scene)
         stats.record("loading", time.perf_counter() - t0)
-        tables = build_accel_tables(scene.tables, stats)
+        tables = build_accel_tables(scene.tables, stats,
+                                    instanced=scene.instanced)
         self._setup(scene, tables, device, seed, tile_size, stats)
 
     @classmethod
@@ -128,6 +141,11 @@ class Runtime:
         logger.info("Loaded scene: %dx%d, %d tris, %d materials, %d lights",
                     scene.width, scene.height, tables["tri_v0"].shape[0],
                     len(scene.material_names), scene.num_lights)
+        if "tl_top" in tables and "tl_depth" not in tables:
+            # tables built elsewhere: walk the top rows once, here on the
+            # host, so that a launch only reads the scalar
+            from ignis_tpu_torch.ops.tlas import top_depth
+            tables = dict(tables, tl_depth=np.int32(top_depth(tables["tl_top"])))
         self.tables = tables_from_numpy(tables, device)
         self.seed = int(seed)
         self.iteration = 0

@@ -103,8 +103,8 @@ def runtime_from_jax_tables(meta, tables, device=None, seed=0,
     meta:   its compiled scene (metadata read by attribute, see
             `scene_from_metadata`).
     tables: its runtime tables as numpy arrays, `bw_*` / `pb_*` /
-            `tri_shade` included when present; they are used as they are,
-            nothing is rebuilt.
+            `tri_shade` / `tl_*` / `sph_rows` included when present; they
+            are used as they are, nothing is rebuilt.
     """
     from ignis_tpu_torch.api import Runtime
     scene = scene_from_metadata(meta)

@@ -25,13 +25,20 @@
 // neighbours) and a warp vote skips the eight tests when no ray of the warp
 // needs them.  Any-hit rays stop testing after their first hit.
 //
-// Arithmetic follows `_tri_test` term by term, including the association
-// (nx*ox + ny*oy) + (nz*oz + d0); build with -fmad=false so the products are
-// not contracted and the result equals the plain PyTorch version bit for bit.
+// The slab and triangle tests are those of bw_tri_test.cuh, shared with
+// tlas.cu; they follow `_tri_test` term by term.  Build with -fmad=false so
+// the products are not contracted and the result equals the plain PyTorch
+// version bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "bw_tri_test.cuh"
+
 namespace {
+
+using ignis::bw_inv;
+using ignis::bw_slab;
+using ignis::bw_tri_test;
 
 constexpr int kTriTile = 8;      // triangles per cluster
 constexpr int kRowFloats = 16;   // floats per triangle row
@@ -58,12 +65,7 @@ bw_kernel(const float* __restrict__ tris, const float* __restrict__ clusters,
         tmn = tmin_p[i];
         bt = tmax_p[i];
     }
-    const float big = 1e30f;
-    const float ix = (dx == 0.f) ? big : 1.0f / dx;
-    const float iy = (dy == 0.f) ? big : 1.0f / dy;
-    const float iz = (dz == 0.f) ? big : 1.0f / dz;
-    const float tol = 1.1920928955078125e-07f;
-    const float one_tol = 1.0f + tol;
+    const float ix = bw_inv(dx), iy = bw_inv(dy), iz = bw_inv(dz);
     float bu = 0.f, bv = 0.f;
     int bi = -1;
 
@@ -81,17 +83,8 @@ bw_kernel(const float* __restrict__ tris, const float* __restrict__ clusters,
 
         for (int c = 0; c < ncl; ++c) {
             const float* cb = s_cl + c * 8;
-            const float t0x = (cb[0] - ox) * ix;
-            const float t1x = (cb[3] - ox) * ix;
-            const float t0y = (cb[1] - oy) * iy;
-            const float t1y = (cb[4] - oy) * iy;
-            const float t0z = (cb[2] - oz) * iz;
-            const float t1z = (cb[5] - oz) * iz;
-            const float near_ = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                                      fmaxf(fminf(t0z, t1z), tmn));
-            const float far_ = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                                     fminf(fmaxf(t0z, t1z), bt));
-            bool pass = live && (near_ <= far_) && (cb[6] > 0.f);
+            bool pass = live && bw_slab(cb, ox, oy, oz, ix, iy, iz, tmn, bt) &&
+                        (cb[6] > 0.f);
             if (any_hit && bi >= 0) pass = false;
             // uniform per warp: skip the eight tests when no ray needs them
             if (!__any_sync(0xffffffffu, pass)) continue;
@@ -99,22 +92,9 @@ bw_kernel(const float* __restrict__ tris, const float* __restrict__ clusters,
             const float* row = s_tr + c * kTriTile * kRowFloats;
 #pragma unroll
             for (int k = 0; k < kTriTile; ++k, row += kRowFloats) {
-                const float nx = row[0], ny = row[1], nz = row[2], d0 = row[3];
-                const float b1x = row[4], b1y = row[5], b1z = row[6], b1c = row[7];
-                const float b2x = row[8], b2y = row[9], b2z = row[10], b2c = row[11];
-                const bool vis = (static_cast<int>(row[12]) & mask_bit) != 0;
-                const float m = (nx * ox + ny * oy) + (nz * oz + d0);
-                const float kk = nx * dx + ny * dy + nz * dz;
-                const float inv_k = (kk == 0.f) ? 0.f : 1.0f / kk;
-                const float tt = -m * inv_k;
-                const float s1 = (b1x * ox + b1y * oy) + (b1z * oz + b1c);
-                const float r1 = b1x * dx + b1y * dy + b1z * dz;
-                const float u = s1 + tt * r1;
-                const float s2 = (b2x * ox + b2y * oy) + (b2z * oz + b2c);
-                const float r2 = b2x * dx + b2y * dy + b2z * dz;
-                const float v = s2 + tt * r2;
-                const bool ok = pass && vis && (kk != 0.f) && (u >= -tol) && (v >= -tol) &&
-                                (u + v <= one_tol) && (tt >= tmn) && (tt <= bt);
+                float tt, u, v;
+                const bool ok = pass && bw_tri_test(row, mask_bit, ox, oy, oz, dx, dy, dz,
+                                                    tmn, bt, tt, u, v);
                 if (ok) {
                     bt = tt;
                     if (!any_hit) {

@@ -1,7 +1,8 @@
 """Batched light union: selection, direct sampling, pdfs and emission.
 
-Counterpart of ignis_tpu/light/union.py for point, plane-area, mesh-area and
-constant environment lights with the uniform light selector.  Every branch
+Counterpart of ignis_tpu/light/union.py for point, plane-area, mesh-area,
+analytic-sphere and constant environment lights with the uniform light
+selector.  Every branch
 reports its pdf both raw (`pdf_value`) and converted to solid angle
 (`pdf_solid`), which is what the path technique consumes.
 
@@ -11,6 +12,8 @@ Light parameter rows live in tables["light_data"] (N_lights, 32):
                radiance[13:16]
   AREA_MESH:   radiance[0:3], tri_offset[3], tri_count[4], entity[5]
   ENV:         radiance*scale[0:3], transform3x3[3:12]
+  AREA_SPHERE: radiance[0:3], radius[3], world center[4:7], entity[7],
+               total area 4*pi*r^2 [8]
 """
 
 from __future__ import annotations
@@ -26,14 +29,16 @@ from ignis_tpu_torch.core.warp import (
     equal_area_sphere_pdf, equal_area_square_to_sphere, sample_triangle,
 )
 from ignis_tpu_torch.scene.compile import (
-    LIGHT_AREA_MESH, LIGHT_AREA_PLANE, LIGHT_ENV, LIGHT_POINT,
+    LIGHT_AREA_MESH, LIGHT_AREA_PLANE, LIGHT_AREA_SPHERE, LIGHT_ENV,
+    LIGHT_POINT,
 )
 
-_PORTED = (LIGHT_POINT, LIGHT_AREA_PLANE, LIGHT_AREA_MESH, LIGHT_ENV)
+_PORTED = (LIGHT_POINT, LIGHT_AREA_PLANE, LIGHT_AREA_MESH, LIGHT_ENV,
+           LIGHT_AREA_SPHERE)
 
 # draw counts per light type (sample_direct)
 _LIGHT_DRAWS = {LIGHT_POINT: 0, LIGHT_AREA_PLANE: 2, LIGHT_AREA_MESH: 2,
-                LIGHT_ENV: 2}
+                LIGHT_ENV: 2, LIGHT_AREA_SPHERE: 2}
 
 
 def _check_ported(scene):
@@ -237,6 +242,37 @@ def _sample_area_mesh(data, tables, from_point, is_entering, u1, u2):
                 pdf_solid=pdfv * safe_div(d2, torch.abs(cos)))
 
 
+def _sample_area_sphere(data, from_point, is_entering, u1, u2):
+    """Analytic sphere emitter: an equal-area point on the sphere, flipped to
+    the half VISIBLE from the shading point; the area pdf is 2/area for that
+    half."""
+    radiance = data[:, 0:3]
+    r = data[:, 3]
+    c = data[:, 4:7]
+    area = data[:, 8]
+    nrm = equal_area_square_to_sphere(u1, u2)
+    p = c + nrm * r[..., None]
+    # if the center is closer than the sampled point, mirror the point
+    # through the center
+    os2 = torch.sum((from_point - c) ** 2, dim=-1)
+    ps2 = torch.sum((from_point - p) ** 2, dim=-1)
+    flip = (ps2 > os2)[..., None]
+    p = torch.where(flip, 2.0 * c - p, p)
+    nrm = torch.where(flip, -nrm, nrm)
+    pdfv = safe_div(2.0, area)
+    weight = area * 0.5
+    dir_ = p - from_point
+    dist = _safe_len(dir_)
+    dirn = dir_ * safe_div(1.0, dist)[..., None]
+    sgn = torch.where(is_entering, -1.0, 1.0).to(torch.float32)
+    cos = dot(dirn, nrm) * sgn
+    d2 = dist * dist
+    return dict(dir=dirn, dist=dist, cos=cos, pos=p,
+                intensity=radiance * weight[..., None],
+                pdf_value=pdfv,
+                pdf_solid=pdfv * safe_div(d2, torch.abs(cos)))
+
+
 def _sample_env(data, from_point, scene_radius, u1, u2):
     """Constant environment: equal-area sphere sampling."""
     d = equal_area_square_to_sphere(u1, u2)
@@ -303,9 +339,12 @@ def sample_light_direct(scene, tables, light_idx, from_point, is_entering,
         elif t == LIGHT_AREA_PLANE:
             r = _sample_area_plane(data, from_point, is_entering,
                                    us[0], us[1])
-        else:  # LIGHT_AREA_MESH
+        elif t == LIGHT_AREA_MESH:
             r = _sample_area_mesh(data, tables, from_point, is_entering,
                                   us[0], us[1])
+        else:  # LIGHT_AREA_SPHERE
+            r = _sample_area_sphere(data, from_point, is_entering,
+                                    us[0], us[1])
         m = light_type == t
         _merge(out, r, m)
         draws = torch.where(m, torch.full_like(draws, _LIGHT_DRAWS[t]), draws)
@@ -349,6 +388,9 @@ def light_pdf_direct_solid(scene, tables, light_idx, ray_org, ray_dir,
             area = 0.5 * length(cross(e1, e2))
             pdf_area = safe_div(1.0, area) / torch.clamp_min(tri_count, 1.0)
             v = pdf_area * safe_div(d2, torch.abs(hit_cos))
+        elif t == LIGHT_AREA_SPHERE:
+            # 2/area in area measure, over the visible half
+            v = safe_div(2.0, data[:, 8]) * safe_div(d2, torch.abs(hit_cos))
         elif t == LIGHT_ENV:
             v = torch.full_like(hit_dist, equal_area_sphere_pdf())
         else:

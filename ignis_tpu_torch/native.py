@@ -26,7 +26,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("bw_intersect.cu", "packet_bvh.cu")
+SOURCES = ("bw_intersect.cu", "packet_bvh.cu", "tlas.cu", "mt_intersect.cu")
 # -fmad=false: the kernels repeat their plain PyTorch versions' arithmetic
 # term by term; contraction into fused multiply-adds would change last bits.
 # -Xptxas -v: registers, shared memory and spills of each kernel go into the
@@ -66,8 +66,10 @@ def nvcc_release(nvcc: str | None = None) -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    # headers too: a changed `.cuh` must rebuild what includes it
+    for path in [CSRC / name for name in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -125,6 +127,14 @@ def library() -> ctypes.CDLL:
         lib.ignis_packet_bvh.restype = _I
         lib.ignis_packet_bvh_stack_entries.argtypes = []
         lib.ignis_packet_bvh_stack_entries.restype = _I
+        lib.ignis_tlas.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _P, _P, _P, _P, _P, _P]
+        lib.ignis_tlas.restype = _I
+        lib.ignis_tlas_stack_entries.argtypes = []
+        lib.ignis_tlas_stack_entries.restype = _I
+        lib.ignis_mt_intersect.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                           _I, _I, _P, _P, _P, _P, _P]
+        lib.ignis_mt_intersect.restype = _I
         _lib = lib
     return _lib
 

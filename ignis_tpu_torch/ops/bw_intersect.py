@@ -135,6 +135,13 @@ def _tri_test(row, mask_bit, ox, oy, oz, dx, dy, dz, tmin, bt):
     return ok, tt, u, v
 
 
+def _inv(x):
+    """1/x with the kernels' guard: 1e30 for a zero component."""
+    z = x == 0.0
+    return torch.where(z, torch.full_like(x, 1e30),
+                       1.0 / torch.where(z, torch.ones_like(x), x))
+
+
 def _sweep_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work=None):
     """Cluster-by-cluster sweep in table order, all rays at once.  `work`,
     when given, receives the counts of box and triangle tests these rays
@@ -150,12 +157,7 @@ def _sweep_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work=None):
     bi = torch.full((n,), -1, dtype=torch.int32, device=dev)
     ox, oy, oz = org[:, 0], org[:, 1], org[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-
-    def inv(x):
-        z = x == 0.0
-        return torch.where(z, torch.full_like(x, 1e30),
-                           1.0 / torch.where(z, torch.ones_like(x), x))
-    ix, iy, iz = inv(dx), inv(dy), inv(dz)
+    ix, iy, iz = _inv(dx), _inv(dy), _inv(dz)
     mask_bit = int(mask_bit)
     cl_host = clusters.cpu()
     for c in range(clusters.shape[0]):

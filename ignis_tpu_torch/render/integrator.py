@@ -18,12 +18,14 @@ The bounce loops are Python loops on `alive.any()`: one host sync per bounce
 (plus one in the light selector's rejection loop when the scene has more than
 one light).
 
-Traversal dispatch: `pb_rows` in the tables -> the packet-BVH kernel;
-`bw_tris` -> the Baldwin-Weber kernel; neither -> the Moeller-Trumbore
-sweep of `ops.intersect` (plain torch), for tensors on the CPU only: the
-reference package's kernel for that sweep has no CUDA counterpart yet, so
-such tables raise on the card.  The kernel wrappers launch CUDA for tensors
-on the card and run their plain versions for tensors on the CPU.
+Traversal dispatch for the world-space soup: `pb_rows` in the tables -> the
+packet-BVH kernel; `bw_tris` -> the Baldwin-Weber kernel; neither -> the
+whole-soup Moeller-Trumbore sweep, `ops.mt_intersect`'s kernel on the card
+and `ops.intersect` (plain torch) on the CPU.  Its result is combined with
+the instanced pool's (`tl_inst` -> `ops.tlas`) and the analytic spheres'
+(`sph_rows` -> `ops.spheres`): the nearer hit wins, and pool and sphere hits
+travel in the prim id past the soup's range.  The kernel wrappers launch CUDA
+for tensors on the card and run their plain versions for tensors on the CPU.
 
 Payload: inv_pdf, contrib, depth (starts at 1), eta.
 """
@@ -40,7 +42,7 @@ from ignis_tpu_torch.core import rng
 from ignis_tpu_torch.core.dgather import gather_rows
 from ignis_tpu_torch.core.vec import (
     FLT_EPS, FLT_MAX, cross, dot, length, normalize, orthonormal_basis,
-    safe_div,
+    safe_div, transform_normal, transform_point, transform_vector,
 )
 from ignis_tpu_torch.light import (
     env_emission_and_pdf, light_pdf_direct_solid, light_select_pdf,
@@ -48,9 +50,12 @@ from ignis_tpu_torch.light import (
 )
 from ignis_tpu_torch.ops.bw_intersect import bw_any, bw_closest
 from ignis_tpu_torch.ops.intersect import intersect_any, intersect_closest
+from ignis_tpu_torch.ops.mt_intersect import mt_any, mt_closest
 from ignis_tpu_torch.ops.packet_bvh import (
     MASK_BOUNCE, MASK_CAMERA, MASK_SHADOW, packet_bvh_any, packet_bvh_closest,
 )
+from ignis_tpu_torch.ops.spheres import sphere_any, sphere_closest
+from ignis_tpu_torch.ops.tlas import tlas_any, tlas_closest
 from ignis_tpu_torch.render.camera import generate_rays, pixel_coord_from_xy
 from ignis_tpu_torch.render.sampler import sample_pixel
 from ignis_tpu_torch.scene.compile import LIGHT_AREA_PLANE
@@ -62,9 +67,7 @@ RAY_LIGHT = 0x2
 RAY_BOUNCE = 0x4
 RAY_SHADOW = 0x8
 
-_UNPORTED_TABLES = {"tl_inst": "instancing (two-level traversal)",
-                    "sph_rows": "analytic spheres",
-                    "bvh_node_min": "the per-lane stack BVH traversal"}
+_UNPORTED_TABLES = {"bvh_node_min": "the per-lane stack BVH traversal"}
 
 
 def _handle_color(c, clamp_value):
@@ -92,39 +95,65 @@ def _check_tables(tables):
                 f"{what} is not ported to ignis_tpu_torch yet")
 
 
-def _check_mt_sweep(tables, org):
-    """The Moeller-Trumbore sweep is the CPU's path for tables without
-    `bw_tris` / `pb_rows`.  On the card no kernel does this sweep yet and the
-    plain version must not stand in for one, so triangles there raise.  An
-    empty soup passes on either device: the sweep's loop has no chunk to run
-    and every ray misses."""
-    if org.is_cuda and tables["tri_v0"].shape[0] > 0:
-        raise NotImplementedError(
-            "traversal of tables without `bw_tris` / `pb_rows` on a CUDA "
-            "device (the whole-soup Moeller-Trumbore kernel) is not ported "
-            "to ignis_tpu_torch yet; build the tables with "
-            "`api.build_accel_tables`")
+def sphere_prim_base(tables):
+    """First prim id of the analytic-sphere range: past the soup and the
+    instanced pool (see the combines of `_traverse_closest` and
+    `_surface_at`)."""
+    base = tables["tri_v0"].shape[0]
+    if "tl_inst" in tables:
+        base += tables["tl_inst"].shape[0] * tables["tl_tris"].shape[0]
+    return base
+
+
+def _nearer(pick_ok, t1, u1, v1, enc, out):
+    """Combine a second traversal's hits into `out` = (t, u, v, prim): taken
+    where it hit and is nearer, or where `out` missed."""
+    t0, u0, v0, p0 = out
+    pick = pick_ok & ((t1 < t0) | (p0 < 0))
+    return (torch.where(pick, t1, t0), torch.where(pick, u1, u0),
+            torch.where(pick, v1, v0), torch.where(pick, enc, p0))
 
 
 def _traverse_closest(scene, tables, org, d, tmin, tmax, tri_mask,
                       mask_bit=None):
-    """Closest-hit dispatch: packet BVH > Baldwin-Weber brute > MT sweep.
+    """Closest-hit dispatch: packet BVH > Baldwin-Weber brute > MT sweep for
+    the soup, then the instanced pool and the analytic spheres.
 
     `tri_mask` is the per-triangle visibility array for the MT sweep;
-    `mask_bit` the equivalent ray-class bit for the kernels, whose tables
-    carry packed visibility bits.  Traversal is detached: hit results are
-    piecewise constant in the differentiable parameters.
+    `mask_bit` the equivalent ray-class bit for the other traversals, whose
+    tables carry packed visibility bits.  Traversal is detached: hit results
+    are piecewise constant in the differentiable parameters.
     """
     org, d, tmin, tmax = (x.detach() for x in (org, d, tmin, tmax))
     mb = MASK_BOUNCE if mask_bit is None else mask_bit
+    base = tables["tri_v0"].shape[0]
     if "pb_rows" in tables:
-        return packet_bvh_closest(tables, org, d, tmin, tmax, mask_bit=mb)
-    if "bw_tris" in tables:
-        return bw_closest(tables, org, d, tmin, tmax, mask_bit=mb)
-    _check_mt_sweep(tables, org)
-    return intersect_closest(org, d, tmin, tmax, tables["tri_v0"],
-                             tables["tri_e1"], tables["tri_e2"],
-                             tri_mask=tri_mask)
+        out = packet_bvh_closest(tables, org, d, tmin, tmax, mask_bit=mb)
+    elif "bw_tris" in tables:
+        out = bw_closest(tables, org, d, tmin, tmax, mask_bit=mb)
+    elif base == 0:
+        # no soup (every entity instanced or analytic): every ray misses it
+        out = (tmax.clone(), torch.zeros_like(tmax), torch.zeros_like(tmax),
+               torch.full(tmax.shape, -1, dtype=torch.int32,
+                          device=tmax.device))
+    else:
+        sweep = mt_closest if org.is_cuda else intersect_closest
+        out = sweep(org, d, tmin, tmax, tables["tri_v0"], tables["tri_e1"],
+                    tables["tri_e2"], tri_mask=tri_mask)
+    if "tl_inst" in tables:
+        # pool hits are encoded past the soup's id range as
+        # base + instance * pool_rows + pool_row, so the instance binding
+        # survives the (t, u, v, prim) plumbing
+        tt, tu, tv, ti, te = tlas_closest(tables, org, d, tmin, tmax,
+                                          mask_bit=mb)
+        enc = base + te * tables["tl_tris"].shape[0] + ti
+        out = _nearer(ti >= 0, tt, tu, tv, enc, out)
+    if "sph_rows" in tables:
+        st_, su, sv, si = sphere_closest(tables, org, d, tmin, tmax,
+                                         mask_bit=mb)
+        out = _nearer(si >= 0, st_, su, sv, sphere_prim_base(tables) + si,
+                      out)
+    return out
 
 
 def _traverse_any(scene, tables, org, d, tmin, tmax, tri_mask,
@@ -133,23 +162,35 @@ def _traverse_any(scene, tables, org, d, tmin, tmax, tri_mask,
     org, d, tmin, tmax = (x.detach() for x in (org, d, tmin, tmax))
     mb = MASK_SHADOW if mask_bit is None else mask_bit
     if "pb_rows" in tables:
-        return packet_bvh_any(tables, org, d, tmin, tmax, mask_bit=mb)
-    if "bw_tris" in tables:
-        return bw_any(tables, org, d, tmin, tmax, mask_bit=mb)
-    _check_mt_sweep(tables, org)
-    return intersect_any(org, d, tmin, tmax, tables["tri_v0"],
-                         tables["tri_e1"], tables["tri_e2"],
-                         tri_mask=tri_mask)
+        occ = packet_bvh_any(tables, org, d, tmin, tmax, mask_bit=mb)
+    elif "bw_tris" in tables:
+        occ = bw_any(tables, org, d, tmin, tmax, mask_bit=mb)
+    elif tables["tri_v0"].shape[0] == 0:
+        occ = torch.zeros(tmax.shape, dtype=torch.bool, device=tmax.device)
+    else:
+        sweep = mt_any if org.is_cuda else intersect_any
+        occ = sweep(org, d, tmin, tmax, tables["tri_v0"], tables["tri_e1"],
+                    tables["tri_e2"], tri_mask=tri_mask)
+    if "tl_inst" in tables:
+        occ = occ | tlas_any(tables, org, d, tmin, tmax, mask_bit=mb)
+    if "sph_rows" in tables:
+        occ = occ | sphere_any(tables, org, d, tmin, tmax, mask_bit=mb)
+    return occ
 
 
 def _surface_at(tables, prim, org, direction, t, u, v):
-    """Surface element for hit lanes.  Per-triangle attributes come from one
-    gather of the packed (T, 28) `tri_shade` row when the tables carry it
-    (`api.pack_tri_shade`), else from the separate tables.  `prim` must be
-    in range (the caller clamps miss lanes to 0)."""
+    """Surface element for hit lanes.  Per-triangle attributes of the soup
+    come from one gather of the packed (T, 28) `tri_shade` row when the
+    tables carry it (`api.pack_tri_shade`), else from the separate tables.
+    Pooled (instanced) hits fetch LOCAL attributes from the shared pool and
+    lift them to world space with the instance's transform; analytic sphere
+    hits take normal and area from the sphere.  `prim` must be >= 0 (the
+    caller clamps miss lanes to 0)."""
     prim = prim.long()
+    n = prim.shape[0]
+    dev = prim.device
+    base = tables["tri_v0"].shape[0]
     if "tri_shade" in tables:
-        base = tables["tri_shade"].shape[0]
         row = tables["tri_shade"][torch.clamp_max(prim, base - 1)]
         v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
         n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
@@ -158,20 +199,60 @@ def _surface_at(tables, prim, org, direction, t, u, v):
         ent = row[:, 24].to(torch.int32)
         mat_id = row[:, 25].to(torch.int32)
         light_id = row[:, 26].to(torch.int32)
+    elif base == 0:
+        # no soup: every hit is pooled or a sphere and overwrites these
+        v0 = e1 = e2 = n0 = n1 = n2 = torch.zeros((n, 3), dtype=torch.float32,
+                                                  device=dev)
+        uv0 = uv1 = uv2 = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+        ent = mat_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        light_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
     else:
-        prim = torch.clamp_max(prim, tables["tri_v0"].shape[0] - 1)
-        v0 = tables["tri_v0"][prim]
-        e1 = tables["tri_e1"][prim]
-        e2 = tables["tri_e2"][prim]
-        n0 = tables["tri_n0"][prim]
-        n1 = tables["tri_n1"][prim]
-        n2 = tables["tri_n2"][prim]
-        uv0 = tables["tri_uv0"][prim]
-        uv1 = tables["tri_uv1"][prim]
-        uv2 = tables["tri_uv2"][prim]
-        ent = tables["tri_ent"][prim]
+        sp = torch.clamp_max(prim, base - 1)
+        v0 = tables["tri_v0"][sp]
+        e1 = tables["tri_e1"][sp]
+        e2 = tables["tri_e2"][sp]
+        n0 = tables["tri_n0"][sp]
+        n1 = tables["tri_n1"][sp]
+        n2 = tables["tri_n2"][sp]
+        uv0 = tables["tri_uv0"][sp]
+        uv1 = tables["tri_uv1"][sp]
+        uv2 = tables["tri_uv2"][sp]
+        ent = tables["tri_ent"][sp]
         mat_id = tables["ent_mat"][ent.long()]
         light_id = tables["ent_light"][ent.long()]
+    if "tl_inst" in tables:
+        # decode instance and pool row; normals go through the inverse
+        # transpose, edges through toWorld, so the shared cross-product math
+        # below yields the world face normal AND area
+        pool_rows = tables["tl_tris"].shape[0]
+        ninst = tables["tl_inst"].shape[0]
+        pooled = (prim >= base) & (prim < base + ninst * pool_rows)
+        enc = torch.clamp_min(prim - base, 0)
+        inst = torch.clamp_max(enc // pool_rows, ninst - 1)
+        prow = tables["tl_shade"][enc % pool_rows]
+        irow = tables["tl_inst"][inst]
+        nrow = tables["tl_norm"][inst]
+        nm = nrow[:, 0:9].reshape(-1, 3, 3)
+        tw = nrow[:, 10:22].reshape(-1, 3, 4)
+        sel = pooled[..., None]
+        v0 = torch.where(sel, transform_point(tw, prow[:, 0:3]), v0)
+        e1 = torch.where(sel, transform_vector(tw, prow[:, 3:6]), e1)
+        e2 = torch.where(sel, transform_vector(tw, prow[:, 6:9]), e2)
+        n0 = torch.where(sel, normalize(transform_normal(nm, prow[:, 9:12])),
+                         n0)
+        n1 = torch.where(sel, normalize(transform_normal(nm, prow[:, 12:15])),
+                         n1)
+        n2 = torch.where(sel, normalize(transform_normal(nm, prow[:, 15:18])),
+                         n2)
+        uv0 = torch.where(sel, prow[:, 18:20], uv0)
+        uv1 = torch.where(sel, prow[:, 20:22], uv1)
+        uv2 = torch.where(sel, prow[:, 22:24], uv2)
+        p_ent = irow[:, 22].to(torch.int32)
+        ent = torch.where(pooled, p_ent, ent)
+        mat_id = torch.where(pooled, tables["ent_mat"][p_ent.long()], mat_id)
+        # the pool is non-emissive: emitters stay baked
+        light_id = torch.where(pooled, torch.full_like(light_id, -1),
+                               light_id)
     nraw = cross(e1, e2)
     nlen = length(nraw)
     face_n = nraw * safe_div(1.0, nlen)[..., None]
@@ -180,6 +261,25 @@ def _surface_at(tables, prim, org, direction, t, u, v):
     ns = normalize(n0 * w + n1 * u[..., None] + n2 * v[..., None])
     point = org + direction * t[..., None]
     tex = uv0 * w + uv1 * u[..., None] + uv2 * v[..., None]
+    if "sph_rows" in tables:
+        # analytic sphere hits: normal straight from the center, uv carried
+        # in (u, v) by the traversal
+        sbase = sphere_prim_base(tables)
+        issph = prim >= sbase
+        srows = tables["sph_rows"].shape[0]
+        srow = tables["sph_rows"][torch.clamp(prim - sbase, 0, srows - 1)]
+        sr = torch.clamp_min(srow[:, 3], 1e-30)
+        s_ent = srow[:, 4].to(torch.int32)
+        n_out = normalize((point - srow[:, 0:3]) / sr[:, None])
+        sel = issph[..., None]
+        face_n = torch.where(sel, n_out, face_n)
+        ns = torch.where(sel, n_out, ns)
+        inv_area = torch.where(issph, 1.0 / (4.0 * np.pi * sr * sr), inv_area)
+        tex = torch.where(sel, torch.stack([u, v], dim=-1), tex)
+        ent = torch.where(issph, s_ent, ent)
+        mat_id = torch.where(issph, tables["ent_mat"][s_ent.long()], mat_id)
+        light_id = torch.where(issph, tables["ent_light"][s_ent.long()],
+                               light_id)
     entering = dot(direction, face_n) <= 0.0
     sgn = torch.where(entering, 1.0, -1.0).to(torch.float32)[..., None]
     ns = ns * sgn

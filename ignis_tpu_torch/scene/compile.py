@@ -2,8 +2,10 @@
 
 Counterpart of ignis_tpu/scene/compile.py and table-for-table identical to it
 for every scene of the ported slice: a world-space triangle soup (entity
-transforms baked in), array-of-struct material/light parameter tables, and a
-static `CompiledScene` the integrator specialises on.
+transforms baked in), the instancing split (a shape used by two or more
+entities keeps one local copy plus transform records, `CompiledScene.instanced`),
+analytic sphere records (`sph_rows`), array-of-struct material/light parameter
+tables, and a static `CompiledScene` the integrator specialises on.
 
 Branches whose helpers are not ported yet (textures / PExpr strings, measured
 BSDFs, heterogeneous media, importance-sampled and sky environment lights,
@@ -1487,7 +1489,8 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
 
 
 _SLICE_BSDFS = (BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR)
-_SLICE_LIGHTS = (LIGHT_POINT, LIGHT_AREA_PLANE, LIGHT_AREA_MESH, LIGHT_ENV)
+_SLICE_LIGHTS = (LIGHT_POINT, LIGHT_AREA_PLANE, LIGHT_AREA_MESH, LIGHT_ENV,
+                 LIGHT_AREA_SPHERE)
 
 
 def check_slice(cs: CompiledScene) -> None:
@@ -1516,10 +1519,6 @@ def check_slice(cs: CompiledScene) -> None:
         no("textures / PExpr expressions")
     if cs.media:
         no("participating media")
-    if cs.instanced:
-        no("instancing (two-level traversal)")
-    if "sph_rows" in cs.tables:
-        no("analytic spheres")
     for l in cs.lights:
         if l.type not in _SLICE_LIGHTS:
             no(f"light type id {l.type} (light '{l.name}')")

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where a `Runtime.step` of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_profile_step.py [demo|big|both]
+    python3 scripts/torch_profile_step.py [demo|big|both|instanced|sweep|all]
 
-Runs one warm-up step and then profiles one step of the headline scene(s)
-with `torch.profiler` (CPU + CUDA activities) and prints, per scene, one JSON
-line: the step's wall time (host clock closed by a synchronise), the summed
-device time of all kernels, the device's idle share (1 - device time / wall
-time), the number of kernels launched, the share of the port's two traversal
-kernels, and the ten kernels with the most device time.  Needs a CUDA device;
-prints the card's name and power limit first.
+`both` is demo and big; `instanced` is the 1024-instance scene, `sweep` the
+32,002-triangle scene with un-accelerated tables; `all` is the four.  Every
+scene renders at 512x512.  Runs one warm-up step and then profiles one step
+of the scene(s) with `torch.profiler` (CPU + CUDA activities) and prints, per
+scene, one JSON line: the step's wall time (host clock closed by a
+synchronise), the summed device time of all kernels, the device's idle share
+(1 - device time / wall time), the number of kernels launched, the share of
+the port's traversal kernels, and the ten kernels with the most device time.
+Needs a CUDA device; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+
+_TRAVERSAL_KERNELS = ("bw_kernel", "pbvh_kernel", "tlas_kernel", "mt_kernel")
 
 
 def profile_step(name, rt, spi):
@@ -46,7 +51,7 @@ def profile_step(name, rt, spi):
     rows.sort(key=lambda r: -r[1])
     dev_s = sum(r[1] for r in rows) / 1e6
     trav_s = sum(r[1] for r in rows
-                 if "bw_kernel" in r[0] or "pbvh_kernel" in r[0]) / 1e6
+                 if any(k in r[0] for k in _TRAVERSAL_KERNELS)) / 1e6
     ds = rt._dev_stats.cpu().numpy()
     print(json.dumps({
         "scene": name, "spi": spi, "step_wall_s": wall,
@@ -71,11 +76,23 @@ def main():
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), flush=True)
     from ignis_tpu_torch.api import Runtime
-    from ignis_tpu_torch.scenes import big_scene, demo_scene
-    if which in ("demo", "both"):
+    from ignis_tpu_torch.scenes import big_scene, demo_scene, instanced_scene
+    if which not in ("demo", "big", "both", "instanced", "sweep", "all"):
+        print(f"unknown scene '{which}'", file=sys.stderr)
+        return 2
+    if which in ("demo", "both", "all"):
         profile_step("demo", Runtime(demo_scene(), width=512, height=512), 4)
-    if which in ("big", "both"):
+    if which in ("big", "both", "all"):
         profile_step("big", Runtime(big_scene()), 1)
+    if which in ("instanced", "all"):
+        profile_step("instanced", Runtime(instanced_scene()), 1)
+    if which in ("sweep", "all"):
+        from ignis_tpu_torch.api import pack_tri_shade
+        from ignis_tpu_torch.scene.compile import load_and_compile
+        scene = load_and_compile(big_scene(n_spheres=25, subdiv=3), 512, 512)
+        tables = dict(scene.tables)
+        tables["tri_shade"] = pack_tri_shade(tables)
+        profile_step("sweep", Runtime.from_compiled(scene, tables), 1)
     return 0
 
 

@@ -237,12 +237,17 @@ OUT_OF_SLICE = {
         {"type": "cie_uniform", "name": "l"}]),
     "light env texture": lambda: _flat_with(lights=[
         {"type": "env", "name": "l", "radiance": "sky.exr"}]),
+    "camera != bounce visibility": lambda: _flat_entity(camera_visible=False),
+}
+
+# what raised while the slice was narrower and is inside it now: held to
+# compile, build its tables and render instead
+MOVED_INTO_SLICE = {
     "analytic sphere": lambda: dict(
         _flat_with(), shapes=[{"type": "sphere", "name": "Bottom"}]),
     "instancing": lambda: _flat_plus("entities", {
         "name": "Second", "shape": "Bottom", "bsdf": "ground",
         "transform": {"translate": [0, 0, 1]}}),
-    "camera != bounce visibility": lambda: _flat_entity(camera_visible=False),
 }
 
 
@@ -251,6 +256,15 @@ def test_out_of_slice_scene_raises(what):
     scene = OUT_OF_SLICE[what]()
     with pytest.raises(NotImplementedError, match="not ported"):
         tapi.Runtime(scene, device="cpu")
+
+
+@pytest.mark.parametrize("what", sorted(MOVED_INTO_SLICE))
+def test_moved_into_slice_scene_renders(what):
+    rt = tapi.Runtime(MOVED_INTO_SLICE[what](), device="cpu")
+    assert ("sph_rows" if what == "analytic sphere" else "tl_inst") \
+        in rt.tables
+    rt.step()
+    assert np.isfinite(rt.currentFrame()).all()
 
 
 def test_shadow_only_flags_stay_in_the_slice():

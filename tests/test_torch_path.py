@@ -294,23 +294,39 @@ def test_runtime_needs_a_card_unless_told_otherwise():
         Runtime(demo_scene(), width=8, height=8)
 
 
-def test_raw_tables_raise_on_the_card_and_sweep_on_the_cpu():
+def test_raw_tables_raise_on_the_card_and_sweep_on_the_cpu(monkeypatch):
     """Tables without `bw_tris` / `pb_rows` go through the Moeller-Trumbore
-    sweep on the CPU only; on the card they raise, since no kernel does that
-    sweep yet.  The condition is the tensor's device, checked here with a
-    stand-in for a CUDA tensor.  An empty soup misses everywhere."""
+    sweep: `ops/intersect.py` on the CPU, the sweep's CUDA kernel on the card
+    (they raised there before that kernel was ported).  The condition is the
+    tensor's device, checked here with a stand-in for a CUDA tensor.  An
+    empty soup misses everywhere, on either device, without a sweep."""
     from types import SimpleNamespace
     from ignis_tpu_torch.render import integrator
-    on_card = SimpleNamespace(is_cuda=True)
-    some, none = {"tri_v0": torch.zeros(3, 3)}, {"tri_v0": torch.zeros(0, 3)}
-    with pytest.raises(NotImplementedError, match="Moeller-Trumbore"):
-        integrator._check_mt_sweep(some, on_card)
-    integrator._check_mt_sweep(none, on_card)
-    integrator._check_mt_sweep(some, torch.zeros(1, 3))
+
+    class OnCard(SimpleNamespace):
+        def detach(self):
+            return self
+    on_card = OnCard(is_cuda=True)
+    some = {k: torch.zeros(3, 3) for k in ("tri_v0", "tri_e1", "tri_e2")}
+    t1 = torch.zeros(1)
+    assert not hasattr(integrator, "_check_mt_sweep")
+    monkeypatch.setattr(integrator, "mt_closest", lambda *a, **k: "kernel")
+    monkeypatch.setattr(integrator, "mt_any", lambda *a, **k: "kernel")
+    for name in ("intersect_closest", "intersect_any"):
+        sweep = getattr(integrator, name)
+        monkeypatch.setattr(integrator, name,
+                            lambda *a, _f=sweep, **k: ("cpu", _f(*a, **k)))
+    for traverse in (integrator._traverse_closest, integrator._traverse_any):
+        assert traverse(None, some, on_card, on_card, t1, t1, None) == "kernel"
+        assert traverse(None, some, torch.zeros(1, 3), torch.ones(1, 3), t1,
+                        t1, None)[0] == "cpu"
+    monkeypatch.undo()
     empty = {k: torch.zeros(0, 3) for k in ("tri_v0", "tri_e1", "tri_e2")}
     org = torch.zeros(5, 3)
     d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(5, 1)
     tmin, tmax = torch.zeros(5), torch.full((5,), 10.0)
+    assert (integrator._traverse_closest(None, some, org, d, tmin, tmax,
+                                         None)[3] == -1).all()
     prim = integrator._traverse_closest(None, empty, org, d, tmin, tmax,
                                         None)[3]
     assert (prim == -1).all()
