@@ -9,7 +9,10 @@ port's main path (`Runtime.step` of the `path` technique) on four scenes: the
 demo box through the Baldwin-Weber kernels, the 512,002-triangle field through
 the packet-BVH kernels, 1024 instances of one mesh beside analytic spheres
 through the two-level kernel, and a 32,002-triangle soup with un-accelerated
-tables through the whole-soup Moeller-Trumbore kernel.  Every phase prints one
+tables through the whole-soup Moeller-Trumbore kernel.  That kernel is also
+checked at the width of a tail wave (4096 rays, `tail_ms` / `tail_device_ms`)
+and on the soup twice over, whose copies fall into different ranges of its
+split sweep.  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 N_RAYS = 65536            # rays per kernel check, = the wave capacity
+TAIL_RAYS = 4096          # rays of a tail wave (`render_wavefront`'s default)
 FILM = 512                # film width and height of the headline scenes
 BIG_SCENE = dict(n_spheres=25, subdiv=5)   # 512,002 triangles
 SWEEP_SCENE = dict(n_spheres=25, subdiv=3)  # 32,002 triangles, no tables
@@ -36,6 +40,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 # float32 operations per test, counted from the kernels' sources
 OPS_BOX, OPS_BW_TRI, OPS_MT_TRI = 25, 48, 54
+# what the whole-soup sweep needs of those 54: n = e1 x e2 once a triangle
+# (9); c, r, det, U', V' for every pair (27), whose signs rule a miss out;
+# the division, u, v, w and t (18) only where a ray is hit
+OPS_MT_NORMAL, OPS_MT_PAIR, OPS_MT_HIT = 9, 27, 18
 OPS_TO_LOCAL = 36         # a ray into an instance's space, 3 reciprocals
 
 
@@ -145,28 +153,22 @@ def compare_closest(name, got, ref):
                 max_rel_dt=dt, max_abs_dt=dabs, max_duv=duv)
 
 
-def check_kernels(rt, closest, closest_plain, any_, any_plain, dev, bound_fn):
-    """Hold one module's two kernels against their plain versions on coherent
-    and incoherent rays under the camera, bounce and shadow masks, and time
-    them.  Each of the four takes (tables, org, d, tmin, tmax, mask_bit=);
-    the plain ones also `work=`.  Returns {kernel name: record}."""
+def compare_sets(tb, sets, closest, closest_plain, any_, any_plain, rec_c,
+                 rec_a, width=""):
+    """Every ray set under the camera, bounce and shadow masks: closest hit
+    and occlusion against the plain versions; fails on a mismatch."""
     from ignis_tpu_torch.ops.packet_bvh import (MASK_BOUNCE, MASK_CAMERA,
                                                 MASK_SHADOW)
-    tb = rt.tables
-    sets = {"coherent": camera_rays(rt, int(np.sqrt(N_RAYS)), dev),
-            "incoherent": random_rays(rt, N_RAYS, 11, dev)}
-    sets["secondary"] = secondary_rays(sets["coherent"], closest_plain, tb, 12)
-    rec_c = dict(rays=0, checks=[], max_abs_err=0.0)
-    rec_a = dict(rays=0, checks=[], max_abs_err=0.0)
     for sname, (org, d, tmin, tmax) in sets.items():
         for mname, mb in (("camera", MASK_CAMERA), ("bounce", MASK_BOUNCE),
                           ("shadow", MASK_SHADOW)):
             got = closest(tb, org, d, tmin, tmax, mask_bit=mb)
             ref = closest_plain(tb, org, d, tmin, tmax, mask_bit=mb)
             torch.cuda.synchronize()
-            c = compare_closest(f"{closest.__name__}/{sname}/{mname}", got, ref)
+            c = compare_closest(f"{closest.__name__}/{sname}{width}/{mname}",
+                                got, ref)
             rec_c["rays"] += org.shape[0]
-            rec_c["checks"].append(dict(rays=sname, mask=mname, **c))
+            rec_c["checks"].append(dict(rays=sname + width, mask=mname, **c))
             rec_c["max_abs_err"] = max(rec_c["max_abs_err"], c["max_abs_dt"],
                                        c["max_duv"])
             # occlusion: unnormalised segments of bounded length
@@ -176,11 +178,35 @@ def check_kernels(rt, closest, closest_plain, any_, any_plain, dev, bound_fn):
             torch.cuda.synchronize()
             bad = int((occ != occ_ref).sum())
             if bad:
-                fail(f"{any_.__name__}/{sname}/{mname}: {bad} rays disagree "
-                     "with the plain version")
+                fail(f"{any_.__name__}/{sname}{width}/{mname}: {bad} rays "
+                     "disagree with the plain version")
             rec_a["rays"] += org.shape[0]
-            rec_a["checks"].append(dict(rays=sname, mask=mname, mismatch=bad,
-                                        occluded=int(occ.sum())))
+            rec_a["checks"].append(dict(rays=sname + width, mask=mname,
+                                        mismatch=bad, occluded=int(occ.sum())))
+
+
+def check_kernels(rt, closest, closest_plain, any_, any_plain, dev, bound_fn,
+                  tail=0):
+    """Hold one module's two kernels against their plain versions on coherent
+    and incoherent rays under the camera, bounce and shadow masks, and time
+    them.  Each of the four takes (tables, org, d, tmin, tmax, mask_bit=);
+    the plain ones also `work=`.  With `tail`, the same again on every
+    (N_RAYS / tail)-th ray of each set, the width of a tail wave, with
+    `tail_ms` / `tail_device_ms` on the secondary ones.  Returns {kernel
+    name: record}."""
+    from ignis_tpu_torch.ops.packet_bvh import MASK_BOUNCE, MASK_SHADOW
+    tb = rt.tables
+    sets = {"coherent": camera_rays(rt, int(np.sqrt(N_RAYS)), dev),
+            "incoherent": random_rays(rt, N_RAYS, 11, dev)}
+    sets["secondary"] = secondary_rays(sets["coherent"], closest_plain, tb, 12)
+    rec_c = dict(rays=0, checks=[], max_abs_err=0.0)
+    rec_a = dict(rays=0, checks=[], max_abs_err=0.0)
+    fns = (closest, closest_plain, any_, any_plain)
+    compare_sets(tb, sets, *fns, rec_c, rec_a)
+    if tail:
+        short = {k: tuple(x[::N_RAYS // tail].contiguous() for x in v)
+                 for k, v in sets.items()}
+        compare_sets(tb, short, *fns, rec_c, rec_a, width=f"/{tail}")
     # ---- times, at the wave's width, on the secondary rays (what a bounce
     # wave looks like); the coherent and incoherent times stand beside it
     org, d, tmin, tmax = sets["secondary"]
@@ -211,6 +237,13 @@ def check_kernels(rt, closest, closest_plain, any_, any_plain, dev, bound_fn):
         rec.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms, work=work,
                    rays_per_launch=int(args[0].shape[0]),
                    **side, **bound)
+        if tail:
+            targs = tuple(x[::N_RAYS // tail].contiguous() for x in args)
+            rec.update(
+                tail_rays=int(targs[0].shape[0]),
+                tail_ms=cuda_ms(lambda: fn(tb, *targs, mask_bit=mb), 10),
+                tail_device_ms=graph_ms(lambda: fn(tb, *targs, mask_bit=mb),
+                                        10))
         out[fn.__name__] = rec
     return out
 
@@ -243,9 +276,13 @@ def tlas_bound(rt, work, n, is_any):
 
 
 def mt_bound(rt, work, n, is_any):
+    """The least the function needs, whatever implements it: every pair up
+    to the point where it can be ruled out, the normal once a triangle, and
+    one whole test for each ray that is hit."""
     ntris = rt.tables["tri_v0"].shape[0]
     nbytes = ntris * 37 + n * 32 + n * (1 if is_any else 16)
-    return _bound(nbytes, work["tri_tests"] * OPS_MT_TRI)
+    return _bound(nbytes, work["tri_tests"] * OPS_MT_PAIR
+                  + ntris * OPS_MT_NORMAL + work["rays_hit"] * OPS_MT_HIT)
 
 
 def tlas_adapters(tlas):
@@ -284,9 +321,11 @@ def mt_adapters(mt, tb):
         return mt.mt_closest(*rays, *geo(tb), tri_mask=masks[mask_bit])
 
     def mt_closest_plain(tb, *rays, mask_bit=0xF, work=None):
+        out = mt.mt_closest_plain(*rays, *geo(tb), tri_mask=masks[mask_bit])
         if work is not None:
             work["tri_tests"] = rays[0].shape[0] * ntris
-        return mt.mt_closest_plain(*rays, *geo(tb), tri_mask=masks[mask_bit])
+            work["rays_hit"] = int((out[3] >= 0).sum())
+        return out
 
     def mt_any(tb, *rays, mask_bit):
         return mt.mt_any(*rays, *geo(tb), tri_mask=masks[mask_bit])
@@ -296,8 +335,47 @@ def mt_adapters(mt, tb):
         if work is not None:
             work["tri_tests"] = int(torch.where(first >= 0, first + 1,
                                                 ntris).sum())
+            work["rays_hit"] = int((first >= 0).sum())
         return first >= 0
     return mt_closest, mt_closest_plain, mt_any, mt_any_plain
+
+
+def check_mt_extras(mt, rt, recs, dev):
+    """Kernel 4 beyond the common checks.  (a) The soup twice over, so that
+    every triangle's copy lies in another range of the split sweep: closest
+    hit and occlusion bit-equal to the plain versions at both widths, and
+    every hit reported at the later copy.  (b) t, u, v of every check so
+    far must be the plain version's bits."""
+    tb = rt.tables
+    ntris = tb["tri_v0"].shape[0]
+    twice = [torch.cat([tb[k], tb[k]]) for k in ("tri_v0", "tri_e1", "tri_e2")]
+    prim = camera_rays(rt, int(np.sqrt(N_RAYS)), dev)
+    full = secondary_rays(prim, lambda tb_, *r: mt.mt_closest_plain(
+        *r, tb["tri_v0"], tb["tri_e1"], tb["tri_e2"]), tb, 12)
+    dup = []
+    for rays in (full, tuple(x[::N_RAYS // TAIL_RAYS].contiguous()
+                             for x in full)):
+        n = rays[0].shape[0]
+        got = mt.mt_closest(*rays, *twice)
+        ref = mt.mt_closest_plain(*rays, *twice)
+        seg = rays[:3] + (torch.full_like(rays[3], 4.0),)
+        occ = mt.mt_any(*seg, *twice)
+        occ_ref = mt.mt_any_plain(*seg, *twice)
+        torch.cuda.synchronize()
+        c = compare_closest(f"mt_closest/duplicated/{n}", got, ref)
+        early = int(((got[3] >= 0) & (got[3] < ntris)).sum())
+        bad = int((occ != occ_ref).sum())
+        if c["ties"] or c["max_abs_dt"] or c["max_duv"] or early or bad:
+            fail(f"mt/duplicated/{n}: {c}, {early} hits at the earlier copy, "
+                 f"{bad} occlusion mismatches")
+        dup.append(dict(rays=n, triangles=2 * ntris, **c,
+                        occlusion_mismatch=bad))
+        for name in ("mt_closest", "mt_any"):
+            recs[name]["rays"] += n
+    recs["mt_closest"]["duplicated"] = dup
+    if recs["mt_closest"]["max_abs_err"] != 0.0:
+        fail("mt_closest: t, u, v are not the plain version's bits "
+             f"(max abs err {recs['mt_closest']['max_abs_err']})")
 
 
 def _bound(nbytes, ops):
@@ -486,7 +564,8 @@ def main():
                               pb.packet_bvh_any_plain, dev, pb_bound))
     recs.update(check_kernels(rt_inst, *tlas_adapters(tlas), dev, tlas_bound))
     recs.update(check_kernels(rt_sweep, *mt_adapters(mt, rt_sweep.tables),
-                              dev, mt_bound))
+                              dev, mt_bound, tail=TAIL_RAYS))
+    check_mt_extras(mt, rt_sweep, recs, dev)
     emit("kernels", t0, tolerance=dict(t_rel=T_REL, uv_abs=UV_ABS),
          kernels=recs)
 
@@ -583,7 +662,9 @@ def main():
             bound_by=r["bound_by"], library_ms=None,
             device_ms=r["device_ms"],
             coherent_ms=r["coherent_ms"], incoherent_ms=r["incoherent_ms"],
-            rays_per_launch=r["rays_per_launch"]))
+            rays_per_launch=r["rays_per_launch"],
+            **{k: r[k] for k in ("tail_rays", "tail_ms", "tail_device_ms")
+               if k in r}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -112,6 +112,8 @@ def build() -> Path:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+MT_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+               _P]
 
 
 def library() -> ctypes.CDLL:
@@ -132,8 +134,7 @@ def library() -> ctypes.CDLL:
         lib.ignis_tlas.restype = _I
         lib.ignis_tlas_stack_entries.argtypes = []
         lib.ignis_tlas_stack_entries.restype = _I
-        lib.ignis_mt_intersect.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                           _I, _I, _P, _P, _P, _P, _P]
+        lib.ignis_mt_intersect.argtypes = MT_ARGTYPES
         lib.ignis_mt_intersect.restype = _I
         _lib = lib
     return _lib

@@ -20,6 +20,23 @@ their plain version.
 run the plain PyTorch version (`mt_closest_plain` / `mt_any_plain`) for
 tensors on the CPU.  The triangle tensors are read as they are on every call:
 nothing is packed or cached, so a table changed in place is seen at once.
+
+How the kernel is laid out (the source's header has the whole account):
+
+- A pair is rejected after c, r, det, U' = -(r.e2), V' = r.e1, before the
+  division, when those alone prove that u, v or w fails its test;
+  `_mt_reject` is that predicate in plain PyTorch, term by term, for the
+  tests (`rejected => not inside`).  Only un-rejected pairs run the full
+  sequence, so the accepted hit's t, u, v are the plain version's bits.
+- A block takes 512 rays (four a thread) and one range of whole
+  128-triangle tiles; the launch sizes the ranges from the ray count so
+  that there are several blocks for each multiprocessor, also at a few
+  thousand rays (`_tiles_per_range` is that rule in Python, for the tests).
+- Ranges combine through an atomic minimum on a 64-bit key per ray
+  (`_mt_key`: smaller t first, among equal t the higher index); the wrapper
+  allocates the keys, the launch initialises them, and a second small kernel
+  decodes the winner and recomputes its t, u, v.  Any-hit sets one byte per
+  occluded ray, which is the returned bool tensor.
 """
 
 from __future__ import annotations
@@ -28,6 +45,8 @@ import torch
 
 _TOL = -1.1920928955078125e-07
 _CHUNK = 256          # triangles per (rays, chunk) block of the plain version
+_REJ_UV = 2.0 ** -20  # margins of the kernel's early rejection
+_REJ_W = 1.0 + 2.0 ** -16
 
 
 def _lanes(x, n, dev):
@@ -60,6 +79,57 @@ def _mt_chunk(org, d, v0, e1, e2):
     t = (cx * nx + cy * ny + cz * nz) * inv_det
     inside = ~zero & (u >= _TOL) & (v >= _TOL) & (w >= _TOL)
     return t, u, v, inside
+
+
+def _mt_reject(org, d, v0, e1, e2):
+    """The kernel's early rejection for (N,) rays x (C,) triangles -> (N, C)
+    bool, operation by operation as `mt_reject` in `csrc/mt_intersect.cu` has
+    it.  True means the kernel skips the pair; it must imply `not inside` of
+    `_mt_chunk`.  Used by the tests only."""
+    ox, oy, oz = (org[:, c, None] for c in range(3))
+    dx, dy, dz = (d[:, c, None] for c in range(3))
+    v0x, v0y, v0z = (v0[None, :, c] for c in range(3))
+    e1x, e1y, e1z = (e1[None, :, c] for c in range(3))
+    e2x, e2y, e2z = (e2[None, :, c] for c in range(3))
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
+    cx, cy, cz = v0x - ox, v0y - oy, v0z - oz
+    rx = dy * cz - dz * cy
+    ry = dz * cx - dx * cz
+    rz = dx * cy - dy * cx
+    det = nx * dx + ny * dy + nz * dz
+    up = -(rx * e2x + ry * e2y + rz * e2z)
+    vp = rx * e1x + ry * e1y + rz * e1z
+    # xor with det's sign bit: negation flips exactly that bit
+    neg = torch.signbit(det)
+    us = torch.where(neg, -up, up)
+    vs = torch.where(neg, -vp, vp)
+    a = det.abs()
+    m = -(a * _REJ_UV)
+    return (us < m) | (vs < m) | (us + vs > a * _REJ_W)
+
+
+def _mt_key(t, index):
+    """The kernel's 64-bit key of a hit, in numpy (uint64): ordering keys
+    orders hits by t ascending and, among equal t (-0.0 equals +0.0), by
+    index descending.  Used by the tests only."""
+    import numpy as np
+    t = np.asarray(t, dtype=np.float32)
+    b = np.where(t == 0, np.uint32(0), t.view(np.uint32)).astype(np.uint32)
+    b = np.where(b & np.uint32(0x80000000), ~b, b | np.uint32(0x80000000))
+    low = np.uint32(0xFFFFFFFF) - np.asarray(index).astype(np.uint32)
+    return (b.astype(np.uint64) << np.uint64(32)) | low.astype(np.uint64)
+
+
+def _tiles_per_range(n, ntris, sms, rays_per_block, tile, blocks_per_sm):
+    """Tiles of the soup a block sweeps, as `ignis_mt_intersect` sizes them:
+    as few ranges as give a launch over n rays `blocks_per_sm` blocks for
+    each of `sms` multiprocessors.  Used by the tests only."""
+    ray_blocks = -(-n // rays_per_block)
+    tiles = -(-ntris // tile)
+    ranges = min(tiles, max(1, -(-blocks_per_sm * sms // ray_blocks)))
+    return -(-tiles // ranges)
 
 
 def _sweep_plain(org, d, tmin, tmax, v0, e1, e2, tri_mask, any_hit):
@@ -115,6 +185,8 @@ def mt_any_plain(org, d, tmin, tmax, v0, e1, e2, tri_mask=None):
 
 
 def _launch(org, d, tmin, tmax, v0, e1, e2, tri_mask, any_hit):
+    """Launch the sweep: (t, u, v, prim) or, with `any_hit`, the bool per ray.
+    Returns None when there is nothing to launch (no rays or no triangles)."""
     from ignis_tpu_torch import native
     org, d, tmin, tmax = native.check_rays(org, d, tmin, tmax)
     dev = org.device
@@ -133,19 +205,34 @@ def _launch(org, d, tmin, tmax, v0, e1, e2, tri_mask, any_hit):
         tri_mask = tri_mask.contiguous()
         mask_ptr = tri_mask.data_ptr()
     n = org.shape[0]
-    out_t, out_u, out_v, out_i = native.hit_outputs(n, dev)
+    if n == 0 or t == 0:
+        return None
     lib = native.library()
+    if any_hit:
+        work = out = torch.empty(n, dtype=torch.bool, device=dev)
+        ptrs = (None,) * 4
+    else:
+        work = torch.empty(n, dtype=torch.int64, device=dev)
+        out = native.hit_outputs(n, dev)
+        ptrs = tuple(x.data_ptr() for x in out)
     with native.launch_guard(dev):
         err = lib.ignis_mt_intersect(
             v0.data_ptr(), e1.data_ptr(), e2.data_ptr(), mask_ptr, t,
             org.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-            n, int(any_hit), out_t.data_ptr(), out_u.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(),
+            n, int(any_hit), work.data_ptr(), *ptrs,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mt_intersect kernel launch failed: CUDA error "
                            f"{err}")
-    return out_t, out_u, out_v, out_i
+    return out
+
+
+def _misses(org, tmax):
+    """What a sweep over nothing returns: prim -1 and t = tmax."""
+    n, dev = org.shape[0], org.device
+    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+    return (_lanes(tmax, n, dev).clone(), zero, zero.clone(),
+            torch.full((n,), -1, dtype=torch.int32, device=dev))
 
 
 def mt_closest(org, d, tmin, tmax, v0, e1, e2, tri_mask=None):
@@ -153,8 +240,9 @@ def mt_closest(org, d, tmin, tmax, v0, e1, e2, tri_mask=None):
     CUDA tensors go to the kernel, CPU tensors to the plain version."""
     if org.is_cuda:
         out = _launch(org, d, tmin, tmax, v0, e1, e2, tri_mask, False)
-        if org.shape[0]:          # no rays: nothing is launched
-            mt_closest.launches += 1
+        if out is None:           # no rays or no triangles: nothing launched
+            return _misses(org, tmax)
+        mt_closest.launches += 1
         return out
     return mt_closest_plain(org, d, tmin, tmax, v0, e1, e2, tri_mask)
 
@@ -163,9 +251,11 @@ def mt_any(org, d, tmin, tmax, v0, e1, e2, tri_mask=None):
     """Occlusion: True where any visible triangle blocks the segment."""
     if org.is_cuda:
         out = _launch(org, d, tmin, tmax, v0, e1, e2, tri_mask, True)
-        if org.shape[0]:          # no rays: nothing is launched
-            mt_any.launches += 1
-        return out[3] >= 0
+        if out is None:           # no rays or no triangles: nothing launched
+            return torch.zeros(org.shape[0], dtype=torch.bool,
+                               device=org.device)
+        mt_any.launches += 1
+        return out
     return mt_any_plain(org, d, tmin, tmax, v0, e1, e2, tri_mask)
 
 

@@ -28,7 +28,8 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 
-_TRAVERSAL_KERNELS = ("bw_kernel", "pbvh_kernel", "tlas_kernel", "mt_kernel")
+_TRAVERSAL_KERNELS = ("bw_kernel", "pbvh_kernel", "tlas_kernel", "mt_sweep",
+                      "mt_finalize")
 
 
 def profile_step(name, rt, spi):
