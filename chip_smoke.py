@@ -9,10 +9,12 @@ port's main path (`Runtime.step` of the `path` technique) on four scenes: the
 demo box through the Baldwin-Weber kernels, the 512,002-triangle field through
 the packet-BVH kernels, 1024 instances of one mesh beside analytic spheres
 through the two-level kernel, and a 32,002-triangle soup with un-accelerated
-tables through the whole-soup Moeller-Trumbore kernel.  That kernel is also
-checked at the width of a tail wave (4096 rays, `tail_ms` / `tail_device_ms`)
-and on the soup twice over, whose copies fall into different ranges of its
-split sweep.  Every phase prints one
+tables through the whole-soup Moeller-Trumbore kernel.  The two-level and
+whole-soup kernels are also checked and timed at the width of a tail wave
+(4096 rays, `tail_ms` / `tail_device_ms`); the two-level kernel also on a
+second table set (two shapes, 144 instances), the whole-soup kernel on the
+soup twice over, whose copies fall into different ranges of its split sweep;
+both must give the plain versions' bits.  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -264,15 +266,31 @@ def pb_bound(rt, work, n, is_any):
 
 
 def tlas_bound(rt, work, n, is_any):
+    """What the function needs, whatever implements it (`work["needed"]`,
+    counted by `tlas_adapters` over the final outputs): 8 box tests for each
+    top-level inner row whose box the ray's final window [tmin, t] crosses,
+    a box test and a transform for each instance whose world box it crosses,
+    8 triangle tests for each cluster of those whose local box it crosses;
+    an occluded any-hit ray one transform and one cluster's triangles.  The
+    tables once, rays in, results out.  `bound_dense_*`: the same bytes
+    over the dense sweep's work (every cluster box of an entered instance),
+    which the kernel did before it walked a cluster tree."""
     tb = rt.tables
     nbytes = sum(tb[k].numel() for k in ("tl_top", "tl_tris", "tl_clust",
                                          "tl_inst")) * 4 \
         + n * 32 + n * (1 if is_any else 20)
-    ops = ((work["inner_visits"] * 8 + work["instance_tests"]
-            + work["cluster_tests"]) * OPS_BOX
-           + work["instances_entered"] * OPS_TO_LOCAL
-           + work["tri_tests"] * OPS_BW_TRI)
-    return _bound(nbytes, ops)
+    need = work["needed"]
+    ops = (need["inner_visits"] * 8 * OPS_BOX
+           + need["instances_entered"] * (OPS_BOX + OPS_TO_LOCAL)
+           + need["tri_tests"] * OPS_BW_TRI
+           + need.get("occluded", 0) * (OPS_TO_LOCAL + 8 * OPS_BW_TRI))
+    dense = _bound(nbytes, (work["inner_visits"] * 8 + work["instance_tests"]
+                            + work["cluster_tests"]) * OPS_BOX
+                   + work["instances_entered"] * OPS_TO_LOCAL
+                   + work["tri_tests"] * OPS_BW_TRI)
+    return dict(_bound(nbytes, ops), bound_dense_ms=dense["bound_ms"],
+                bound_dense_by=dense["bound_by"],
+                bound_dense_operations=dense["bound_operations"])
 
 
 def mt_bound(rt, work, n, is_any):
@@ -287,7 +305,11 @@ def mt_bound(rt, work, n, is_any):
 
 def tlas_adapters(tlas):
     """`ops.tlas` in the (t, u, v, prim) shape `check_kernels` compares: the
-    instance is folded into prim as instance * pool_rows + pool_row."""
+    instance is folded into prim as instance * pool_rows + pool_row.  With
+    `work=`, the plain versions also count under `work["needed"]` what the
+    final outputs need (`tlas_bound`): the plain walk again over each ray's
+    final window, [tmin, t] (closest) or [tmin, tmax] of the unoccluded rays
+    (any), plus the number of occluded rays."""
     def fold(tb, out):
         t, u, v, row, inst = out
         return t, u, v, torch.where(row >= 0,
@@ -297,9 +319,55 @@ def tlas_adapters(tlas):
         return fold(tb, tlas.tlas_closest(tb, *rays, mask_bit=mask_bit))
 
     def tlas_closest_plain(tb, *rays, mask_bit=0xF, work=None):
-        return fold(tb, tlas.tlas_closest_plain(tb, *rays, mask_bit=mask_bit,
-                                                work=work))
-    return tlas_closest, tlas_closest_plain, tlas.tlas_any, tlas.tlas_any_plain
+        out = tlas.tlas_closest_plain(tb, *rays, mask_bit=mask_bit, work=work)
+        if work is not None:
+            work["needed"] = {}
+            tlas.tlas_closest_plain(tb, *rays[:3], out[0], mask_bit=mask_bit,
+                                    work=work["needed"])
+        return fold(tb, out)
+
+    def tlas_any_plain(tb, *rays, mask_bit=0xF, work=None):
+        occ = tlas.tlas_any_plain(tb, *rays, mask_bit=mask_bit, work=work)
+        if work is not None:
+            work["needed"] = {"occluded": int(occ.sum())}
+            tlas.tlas_any_plain(tb, *(x[~occ] for x in rays),
+                                mask_bit=mask_bit, work=work["needed"])
+        return occ
+    return tlas_closest, tlas_closest_plain, tlas.tlas_any, tlas_any_plain
+
+
+def check_tlas_extras(tlas, rt2, recs, dev):
+    """Kernel 3 beyond the common checks.  (a) A second table set, two
+    shapes of 160 and 10 clusters (the second no multiple of 8) under 144
+    instances: the 3 ray sets x 3 masks of `check_kernels` at 65536 and at
+    4096 rays.  (b) Every kernel 3 check must be bit-equal: no prim
+    mismatch, no exact-t tie to forgive, max abs err 0.0."""
+    tb = rt2.tables
+    fns = tlas_adapters(tlas)
+    sets = {"coherent": camera_rays(rt2, int(np.sqrt(N_RAYS)), dev),
+            "incoherent": random_rays(rt2, N_RAYS, 11, dev)}
+    sets["secondary"] = secondary_rays(sets["coherent"], fns[1], tb, 12)
+    short = {k: tuple(x[::N_RAYS // TAIL_RAYS].contiguous() for x in v)
+             for k, v in sets.items()}
+    rec_c = dict(rays=0, checks=[], max_abs_err=0.0)
+    rec_a = dict(rays=0, checks=[], max_abs_err=0.0)
+    compare_sets(tb, sets, *fns, rec_c, rec_a, width="/two-shapes")
+    compare_sets(tb, short, *fns, rec_c, rec_a,
+                 width=f"/two-shapes/{TAIL_RAYS}")
+    for name, rec in (("tlas_closest", rec_c), ("tlas_any", rec_a)):
+        recs[name]["rays"] += rec["rays"]
+        recs[name]["checks"] += rec["checks"]
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
+                                        rec["max_abs_err"])
+    recs["tlas_closest"]["two_shapes"] = dict(
+        instances=int(tb["tl_inst"].shape[0]),
+        clusters_per_shape=sorted({int(c) for c in tb["tl_inst"][:, 8]}),
+        tl_ctree=list(tb["tl_ctree"].shape))
+    rc = recs["tlas_closest"]
+    ties = sum(c["ties"] for c in rc["checks"])
+    if rc["max_abs_err"] != 0.0 or ties:
+        fail(f"tlas_closest: not the plain version's bits (max abs err "
+             f"{rc['max_abs_err']}, {ties} exact-t ties with another prim)")
 
 
 def mt_adapters(mt, tb):
@@ -529,6 +597,8 @@ def main():
     t2 = time.perf_counter()
     rt_inst = Runtime(instanced_scene(), width=FILM, height=FILM, device=dev)
     isec = rt_inst.stats.sections
+    rt_two = Runtime(instanced_scene(12, 3, second_subdiv=1), width=FILM,
+                     height=FILM, device=dev)
     t3 = time.perf_counter()
     rt_sweep = sweep_runtime(FILM, dev)
     emit("scenes", t0, demo_seconds=round(t1 - t0, 3),
@@ -536,7 +606,10 @@ def main():
          instanced_compile_seconds=round(isec["loading"].total, 3),
          instanced_table_build_seconds=round(
              isec["build_bvh"].total + isec["build_traversal_tables"].total
-             + isec["build_tlas"].total, 3),
+             + isec["build_tlas"].total + isec["build_cluster_tree"].total, 3),
+         instanced_cluster_tree_seconds=round(
+             isec["build_cluster_tree"].total, 4),
+         tl_ctree=list(rt_inst.tables["tl_ctree"].shape),
          instances=int(rt_inst.tables["tl_inst"].shape[0]),
          pool_rows=int(rt_inst.tables["tl_tris"].shape[0]),
          instanced_soup_tris=int(rt_inst.tables["tri_v0"].shape[0]),
@@ -562,7 +635,9 @@ def main():
     recs.update(check_kernels(rt_big, pb.packet_bvh_closest,
                               pb.packet_bvh_closest_plain, pb.packet_bvh_any,
                               pb.packet_bvh_any_plain, dev, pb_bound))
-    recs.update(check_kernels(rt_inst, *tlas_adapters(tlas), dev, tlas_bound))
+    recs.update(check_kernels(rt_inst, *tlas_adapters(tlas), dev, tlas_bound,
+                              tail=TAIL_RAYS))
+    check_tlas_extras(tlas, rt_two, recs, dev)
     recs.update(check_kernels(rt_sweep, *mt_adapters(mt, rt_sweep.tables),
                               dev, mt_bound, tail=TAIL_RAYS))
     check_mt_extras(mt, rt_sweep, recs, dev)
@@ -663,7 +738,8 @@ def main():
             device_ms=r["device_ms"],
             coherent_ms=r["coherent_ms"], incoherent_ms=r["incoherent_ms"],
             rays_per_launch=r["rays_per_launch"],
-            **{k: r[k] for k in ("tail_rays", "tail_ms", "tail_device_ms")
+            **{k: r[k] for k in ("tail_rays", "tail_ms", "tail_device_ms",
+                                 "bound_dense_ms", "bound_dense_by")
                if k in r}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

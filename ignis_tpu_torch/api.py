@@ -72,8 +72,8 @@ def build_accel_tables(tables, stats=None, instanced=None):
     for the world-space soup the SAH BVH, then packet-BVH rows (>= 4096
     triangles) or Baldwin-Weber rows (fewer), then the packed shading rows;
     for `instanced` (a compiled scene's `instanced` dict of unique shapes and
-    instance records, or None) the two-level tables of `ops.tlas`.  Returns a
-    new dict."""
+    instance records, or None) the two-level tables of `ops.tlas` and the
+    kernel's cluster tree over them (`tl_ctree`).  Returns a new dict."""
     from ignis_tpu_torch.ops.bvh import build_bvh
     tables = dict(tables)
     ntris = tables["tri_v0"].shape[0]
@@ -99,13 +99,19 @@ def build_accel_tables(tables, stats=None, instanced=None):
             stats.record("build_bvh", t1 - t0)
             stats.record("build_traversal_tables", t2 - t1)
     if instanced:
-        from ignis_tpu_torch.ops.tlas import build_tlas, check_encoding
+        from ignis_tpu_torch.ops.tlas import (
+            build_cluster_tree, build_tlas, check_encoding,
+        )
         t0 = time.perf_counter()
         tables.update(build_tlas(instanced["shapes"], instanced["records"]))
         nsph = tables["sph_rows"].shape[0] if "sph_rows" in tables else 0
         check_encoding(ntris, tables, nsph)
+        t1 = time.perf_counter()
+        tables["tl_ctree"] = build_cluster_tree(tables["tl_clust"],
+                                                tables["tl_inst"])
         if stats is not None:
-            stats.record("build_tlas", time.perf_counter() - t0)
+            stats.record("build_tlas", t1 - t0)
+            stats.record("build_cluster_tree", time.perf_counter() - t1)
     return tables
 
 
@@ -146,6 +152,11 @@ class Runtime:
             # host, so that a launch only reads the scalar
             from ignis_tpu_torch.ops.tlas import top_depth
             tables = dict(tables, tl_depth=np.int32(top_depth(tables["tl_top"])))
+        if "tl_top" in tables and "tl_ctree" not in tables:
+            # the kernel's cluster tree, derived from the pool's own tables
+            from ignis_tpu_torch.ops.tlas import build_cluster_tree
+            tables = dict(tables, tl_ctree=build_cluster_tree(
+                tables["tl_clust"], tables["tl_inst"]))
         self.tables = tables_from_numpy(tables, device)
         self.seed = int(seed)
         self.iteration = 0

@@ -129,8 +129,8 @@ def library() -> ctypes.CDLL:
         lib.ignis_packet_bvh.restype = _I
         lib.ignis_packet_bvh_stack_entries.argtypes = []
         lib.ignis_packet_bvh_stack_entries.restype = _I
-        lib.ignis_tlas.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _P, _P, _P, _P, _P, _P]
+        lib.ignis_tlas.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _P, _P, _P, _P, _P, _P]
         lib.ignis_tlas.restype = _I
         lib.ignis_tlas_stack_entries.argtypes = []
         lib.ignis_tlas_stack_entries.restype = _I

@@ -24,13 +24,19 @@ Tables (all float32, equal to the reference package's):
   tl_top   (R, 128)  8-wide BVH rows; inner: child boxes at lanes [6c, 6c+6),
                      child row at 64+c (-1e9 = none); leaf: lanes 0..7 =
                      instance ids, -1 = empty; lane 126 = row type
-plus `tl_depth`, the depth of `tl_top`, which sizes the per-ray stack.
+plus `tl_depth`, the depth of `tl_top`, which sizes the per-ray stack, and
+the port's own `tl_ctree` (`build_cluster_tree`, derived from `tl_clust` and
+`tl_inst`): per instance a header, then an implicit 8-ary tree of boxes over
+each shape's clusters, which the kernel walks in place of the dense sweep.
 
 `tlas_closest` / `tlas_any` (and `tlas_traverse`, the reference's signature)
 launch the CUDA kernel for tensors on the card and run the plain PyTorch
-version for tensors on the CPU.  Both decide per ray whether to enter an
-instance, enter a cluster and push a child, from that ray's own [tmin, best]
-window; the reference decides each of them for a block of 1024 rays at once,
+version for tensors on the CPU.  The plain version sweeps every cluster of an
+entered instance; the kernel skips the subtrees of `tl_ctree` whose box the
+ray's window misses, which changes no decision (`csrc/tlas.cu` has the
+argument, `cluster_walk_plain` is the same walk in PyTorch for the tests).
+Both decide per ray whether to enter an instance, enter a cluster and push a
+child, from that ray's own [tmin, best] window; the reference decides each of them for a block of 1024 rays at once,
 which can differ only for a hit that lies within rounding of a box face.  Both
 visit in the reference's order (children pushed 0..7 and popped last first,
 leaf slots, clusters and triangles ascending), and the accept test is
@@ -50,6 +56,7 @@ LANES = 128
 _TOP_WIDTH = 8                  # children per top-level BVH row
 _TOP_TYPE_LANE = 126            # 0 = inner row, 1 = instance-leaf row
 _TOP_MISSING = np.float32(-1e9)
+_CTREE_FLOATS = 8               # tl_ctree row: header or node
 
 
 def _build_top_rows(inst):
@@ -194,6 +201,67 @@ def build_tlas(shapes, instances):
             "tl_top": top, "tl_depth": np.int32(depth)}
 
 
+def build_cluster_tree(tl_clust, tl_inst):
+    """`tl_ctree` (I + N, 8) float32: the cluster tree of `csrc/tlas.cu`,
+    derived from `tl_clust` and `tl_inst` alone (so also for tables built by
+    the reference package).
+
+    Row i < I is instance i's header: [levels L, first row of level 1, ...,
+    first row of level 7] (all 0 for an invalid instance or a shape of <= 8
+    clusters, which the kernel sweeps cluster by cluster).  The rows after
+    them hold, for each distinct cluster range [cl0, cl0 + ccnt) of the valid
+    instances, levels 1..L of an implicit 8-ary tree over that range in its
+    pool order: node j of level l covers clusters [8^l j, 8^l (j + 1)), its
+    row is [lo(3), hi(3), valid, 0] with lo / hi the float32 min / max of its
+    valid children's min(lo, hi) / max(lo, hi) (NaN kept), valid iff a child
+    is.  Level l + 1 exists while level l has more than 8 nodes."""
+    clust = np.asarray(tl_clust, np.float32)
+    inst = np.asarray(tl_inst, np.float32)
+    ninst = inst.shape[0]
+    header = np.zeros((ninst, _CTREE_FLOATS), np.float32)
+    levels_out = []
+    nrows = ninst
+    trees = {}
+    for ii in range(ninst):
+        if not inst[ii, 6] > 0.0:
+            continue
+        key = (int(inst[ii, 7]), int(inst[ii, 8]))
+        if key not in trees:
+            cl0, ccnt = key
+            part = clust[cl0:cl0 + ccnt]
+            lo = np.minimum(part[:, 0:3], part[:, 3:6])
+            hi = np.maximum(part[:, 0:3], part[:, 3:6])
+            valid = part[:, 6] > 0.0
+            head = np.zeros(_CTREE_FLOATS, np.float32)
+            level = 0
+            while lo.shape[0] > _TOP_WIDTH:
+                level += 1
+                if level >= _CTREE_FLOATS:
+                    raise ValueError(f"{ccnt} clusters need more than "
+                                     f"{_CTREE_FLOATS - 1} tree levels")
+                n = -(-lo.shape[0] // _TOP_WIDTH)
+                pad = n * _TOP_WIDTH - lo.shape[0]
+                v = np.pad(valid, (0, pad)).reshape(n, _TOP_WIDTH, 1)
+                group = lambda a: np.pad(a, ((0, pad), (0, 0))).reshape(
+                    n, _TOP_WIDTH, 3)
+                # invalid children take no part; NaN of a valid one is kept
+                lo = np.where(v, group(lo), np.float32(np.inf)).min(axis=1)
+                hi = np.where(v, group(hi), np.float32(-np.inf)).max(axis=1)
+                valid = v.any(axis=(1, 2))
+                lo[~valid] = 0.0
+                hi[~valid] = 0.0
+                rows = np.zeros((n, _CTREE_FLOATS), np.float32)
+                rows[:, 0:3], rows[:, 3:6] = lo, hi
+                rows[:, 6] = valid
+                head[level] = np.float32(nrows)
+                levels_out.append(rows)
+                nrows += n
+            head[0] = level
+            trees[key] = head
+        header[ii] = trees[key]
+    return np.concatenate([header] + levels_out).astype(np.float32)
+
+
 def top_depth(tl_top) -> int:
     """Depth of a `tl_top` row table on the host (1 = a single leaf row)."""
     top = np.asarray(tl_top)
@@ -256,6 +324,36 @@ def _bump(work, key, v):
         work[key] = work.get(key, 0) + int(v)
 
 
+def _enter_instances(tables, st, sel, iid, mask_bit, work):
+    """Working-set lanes `sel` meet the instances `iid` (one each): the enter
+    test and, for the lanes that enter, the local ray.  Returns None when no
+    lane enters, else (sel, iid, instance rows, (lox, loy, loz, ldx, ldy,
+    ldz, lix, liy, liz), tmn, bt) of the lanes that do."""
+    ir = tables["tl_inst"][iid]
+    g = lambda k: st[k][sel]
+    ox, oy, oz, dx, dy, dz = (g(k) for k in ("ox", "oy", "oz", "dx", "dy", "dz"))
+    tmn, bt = g("tmn"), g("bt")
+    near, far = _slab(ir, 0, 3, ox, oy, oz, g("ix"), g("iy"), g("iz"), tmn)
+    enter = ((near <= far) & (near <= bt) & (ir[:, 6] > 0.0)
+             & ((ir[:, 23].to(torch.int32) & mask_bit) != 0))
+    _bump(work, "instance_tests", sel.shape[0])
+    if not bool(enter.any()):
+        return None
+    sel, iid, ir = sel[enter], iid[enter], ir[enter]
+    ox, oy, oz, dx, dy, dz, tmn, bt = (x[enter] for x in (
+        ox, oy, oz, dx, dy, dz, tmn, bt))
+    m = [ir[:, 10 + c] for c in range(12)]
+    lox = (m[0] * ox + m[1] * oy) + (m[2] * oz + m[3])
+    loy = (m[4] * ox + m[5] * oy) + (m[6] * oz + m[7])
+    loz = (m[8] * ox + m[9] * oy) + (m[10] * oz + m[11])
+    ldx = m[0] * dx + m[1] * dy + m[2] * dz
+    ldy = m[4] * dx + m[5] * dy + m[6] * dz
+    ldz = m[8] * dx + m[9] * dy + m[10] * dz
+    _bump(work, "instances_entered", sel.shape[0])
+    return (sel, iid, ir, (lox, loy, loz, ldx, ldy, ldz, _inv(ldx), _inv(ldy),
+                           _inv(ldz)), tmn, bt)
+
+
 def _visit_instances(tables, st, sel, iid, mask_bit, any_hit, work):
     """Working-set lanes `sel` meet the instances `iid` (one each): enter
     test, local ray, the shape's clusters in order.  Updates `st` in place.
@@ -266,34 +364,17 @@ def _visit_instances(tables, st, sel, iid, mask_bit, any_hit, work):
     at entry) is computed for all clusters at once; the few triangles per ray
     that survive are then replayed in visiting order against the running
     best, which gives exactly the result of the ray-by-ray loop."""
-    tris, clust, inst = tables["tl_tris"], tables["tl_clust"], tables["tl_inst"]
-    ir = inst[iid]
-    g = lambda k: st[k][sel]
-    ox, oy, oz, dx, dy, dz = (g(k) for k in ("ox", "oy", "oz", "dx", "dy", "dz"))
-    tmn, bt = g("tmn"), g("bt")
-    near, far = _slab(ir, 0, 3, ox, oy, oz, g("ix"), g("iy"), g("iz"), tmn)
-    enter = ((near <= far) & (near <= bt) & (ir[:, 6] > 0.0)
-             & ((ir[:, 23].to(torch.int32) & mask_bit) != 0))
-    _bump(work, "instance_tests", sel.shape[0])
-    if not bool(enter.any()):
+    entered = _enter_instances(tables, st, sel, iid, mask_bit, work)
+    if entered is None:
         return
-    sel, iid, ir = sel[enter], iid[enter], ir[enter]
-    ox, oy, oz, dx, dy, dz, tmn, bt = (x[enter] for x in (
-        ox, oy, oz, dx, dy, dz, tmn, bt))
+    tris, clust = tables["tl_tris"], tables["tl_clust"]
+    sel, iid, ir, local, tmn, bt = entered
+    lox, loy, loz, ldx, ldy, ldz, lix, liy, liz = local
     k = sel.shape[0]
-    dev = ox.device
-    m = [ir[:, 10 + c] for c in range(12)]
-    lox = (m[0] * ox + m[1] * oy) + (m[2] * oz + m[3])
-    loy = (m[4] * ox + m[5] * oy) + (m[6] * oz + m[7])
-    loz = (m[8] * ox + m[9] * oy) + (m[10] * oz + m[11])
-    ldx = m[0] * dx + m[1] * dy + m[2] * dz
-    ldy = m[4] * dx + m[5] * dy + m[6] * dz
-    ldz = m[8] * dx + m[9] * dy + m[10] * dz
-    lix, liy, liz = _inv(ldx), _inv(ldy), _inv(ldz)
+    dev = lox.device
     cl0 = ir[:, 7].long()
     ccnt = ir[:, 8].long()
     toff = ir[:, 9].long()
-    _bump(work, "instances_entered", k)
     _bump(work, "cluster_tests", ccnt.sum())
 
     # ---- every cluster box of the shape, without the running-best clip
@@ -365,6 +446,113 @@ def _visit_instances(tables, st, sel, iid, mask_bit, any_hit, work):
     st["bi"][sel], st["be"][sel] = lbi, lbe
 
 
+def _node_slab(b, ox, oy, oz, ix, iy, iz, tmn):
+    """The kernel's node test without the best-t clip: an axis whose slab
+    end is NaN constrains nothing, and NaN is dropped as fminf / fmaxf drop
+    it.  Pass = near <= fmin(far, best)."""
+    inf = torch.full_like(b[..., 0], float("inf"))
+    a, e = [], []
+    for ax, o, i in ((0, ox, ix), (1, oy, iy), (2, oz, iz)):
+        t0, t1 = (b[..., ax] - o) * i, (b[..., ax + 3] - o) * i
+        nan = torch.isnan(t0) | torch.isnan(t1)
+        a.append(torch.where(nan, -inf, torch.fmin(t0, t1)))
+        e.append(torch.where(nan, inf, torch.fmax(t0, t1)))
+    return (torch.fmax(torch.fmax(a[0], a[1]), torch.fmax(a[2], tmn)),
+            torch.fmin(torch.fmin(e[0], e[1]), e[2]))
+
+
+def _aligned_level(c, levels):
+    """Largest level <= `levels` whose nodes are aligned at cluster c > 0."""
+    out = torch.zeros_like(c)
+    for lev in range(1, _CTREE_FLOATS):
+        out = torch.where((c % (1 << (3 * lev)) == 0) & (lev <= levels),
+                          torch.full_like(c, lev), out)
+    return out
+
+
+def _walk_instances(tables, st, sel, iid, mask_bit, any_hit, work):
+    """`_visit_instances` with the kernel's walk over the cluster tree
+    (`tl_ctree`) in place of the dense sweep, one node or cluster a step for
+    every lane at once: a node or cluster that fails is skipped (the walk
+    goes on at the largest level aligned past it), a node that passes is
+    descended into, a cluster that passes is entered and its eight triangles
+    are tested in order against the running best."""
+    entered = _enter_instances(tables, st, sel, iid, mask_bit, work)
+    if entered is None:
+        return
+    tris, clust, ctree = tables["tl_tris"], tables["tl_clust"], tables["tl_ctree"]
+    sel, iid, ir, local, tmn, bt = entered
+    lox, loy, loz, ldx, ldy, ldz, lix, liy, liz = local
+    k = sel.shape[0]
+    dev = lox.device
+    cl0, ccnt, toff = (ir[:, q].long() for q in (7, 8, 9))
+    hdr = ctree[iid]
+    levels = hdr[:, 0].long()
+    bases = hdr[:, 1:_CTREE_FLOATS].long()
+    bt = bt.clone()
+    bu, bv, bi, be = (st[key][sel].clone() for key in ("bu", "bv", "bi", "be"))
+    c = torch.zeros(k, dtype=torch.int64, device=dev)
+    lev = levels.clone()
+    while True:
+        a = (c < ccnt).nonzero(as_tuple=True)[0]
+        if a.shape[0] == 0:
+            break
+        la, ca = lev[a], c[a]
+        sh = 3 * la
+        j = ca >> sh
+        node = la > 0
+        nrow = bases[a, torch.clamp_min(la - 1, 0)] + j
+        crow = cl0[a] + j
+        box = torch.where(node[:, None],
+                          ctree[torch.clamp(nrow, 0, ctree.shape[0] - 1)],
+                          clust[torch.clamp(crow, 0, clust.shape[0] - 1)])
+        r = lambda x: x[a]
+        ray = (r(lox), r(loy), r(loz), r(lix), r(liy), r(liz), r(tmn))
+        n_near, n_far = _node_slab(box, *ray)
+        c_near, c_far = _slab(box, 0, 3, *ray)
+        bta = bt[a]
+        valid = box[:, 6] > 0.0
+        passed = valid & torch.where(
+            node, n_near <= torch.fmin(n_far, bta),
+            (c_near <= c_far) & (c_near <= bta))
+        _bump(work, "node_tests", (valid & node).sum())
+        _bump(work, "cluster_tests", (valid & ~node).sum())
+        # a node that passes: its first child next, one level down
+        down = passed & node
+        lev[a[down]] -= 1
+        # a cluster that passes: its eight triangles in order
+        e = passed & ~node
+        ae, je = a[e], j[e]
+        hit = torch.zeros(ae.shape[0], dtype=torch.bool, device=dev)
+        for kk in range(TRI_TILE):
+            rows = torch.clamp_max(toff[ae] + je * TRI_TILE + kk,
+                                   tris.shape[0] - 1)
+            q = lambda x: x[ae]
+            ok, tt, u, v = _tri_test(tris[rows], mask_bit, q(lox), q(loy),
+                                     q(loz), q(ldx), q(ldy), q(ldz), q(tmn),
+                                     bt[ae])
+            if any_hit:
+                ok = ok & ~hit
+            hit = hit | ok
+            la_ = ae[ok]
+            bt[la_] = tt[ok]
+            if not any_hit:
+                bu[la_] = torch.clamp_min(u[ok], 0.0)
+                bv[la_] = torch.clamp_min(v[ok], 0.0)
+            bi[la_] = rows[ok].to(torch.int32)
+            be[la_] = iid[la_].to(torch.int32)
+        _bump(work, "tri_tests", TRI_TILE * ae.shape[0])
+        # past a node or cluster that failed, or a cluster entered
+        past = ~down
+        ap = a[past]
+        c[ap] = (j[past] + 1) << sh[past]
+        lev[ap] = _aligned_level(c[ap], levels[ap])
+        if any_hit:
+            c[ae[hit]] = ccnt[ae[hit]]
+    st["bt"][sel], st["bu"][sel], st["bv"][sel] = bt, bu, bv
+    st["bi"][sel], st["be"][sel] = bi, be
+
+
 _WORK_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "ix", "iy", "iz", "tmn",
               "bt", "bu", "bv", "bi", "be", "lane", "stack", "sp")
 
@@ -376,6 +564,23 @@ def tlas_traverse_plain(tables, org, d, tmin, tmax, mask_bit=0xF,
     from its own stack; lanes that finished are compacted away.  `work`, when
     given, receives what these rays needed: `inner_visits`, `leaf_visits`,
     `instance_tests`, `instances_entered`, `cluster_tests`, `tri_tests`."""
+    return _traverse_plain(tables, org, d, tmin, tmax, mask_bit, any_hit,
+                           work, _visit_instances)
+
+
+def cluster_walk_plain(tables, org, d, tmin, tmax, mask_bit=0xF,
+                       any_hit=False, work=None):
+    """`tlas_traverse_plain` with the kernel's walk over the cluster tree
+    (`tl_ctree`) in every entered instance: the same results, bit for bit
+    (tests/test_torch_tlas.py holds them so); `work` also gets
+    `node_tests`, and `cluster_tests` / `tri_tests` count what the walk
+    decided and tested.  For the tests only."""
+    return _traverse_plain(tables, org, d, tmin, tmax, mask_bit, any_hit,
+                           work, _walk_instances)
+
+
+def _traverse_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work,
+                    visit):
     top = tables["tl_top"]
     n = org.shape[0]
     dev = org.device
@@ -433,8 +638,8 @@ def tlas_traverse_plain(tables, org, d, tmin, tmax, mask_bit=0xF,
                     go = go & (st["bi"] < 0)
                 sel = go.nonzero(as_tuple=True)[0]
                 if sel.shape[0]:
-                    _visit_instances(tables, st, sel, iid[sel], mask_bit,
-                                     any_hit, work)
+                    visit(tables, st, sel, iid[sel], mask_bit, any_hit,
+                          work)
             if any_hit:
                 st["sp"] = torch.where(st["bi"] >= 0,
                                        torch.zeros_like(st["sp"]), st["sp"])
@@ -480,6 +685,14 @@ def _launch(tables, org, d, tmin, tmax, mask_bit, any_hit):
     tris = native.check_table("tl_tris", tables["tl_tris"], 16, dev)
     clust = native.check_table("tl_clust", tables["tl_clust"], 8, dev)
     inst = native.check_table("tl_inst", tables["tl_inst"], 32, dev)
+    if "tl_ctree" not in tables:
+        raise ValueError("the kernel walks `tl_ctree`: set tl_ctree = "
+                         "build_cluster_tree(tl_clust, tl_inst) once")
+    ctree = native.check_table("tl_ctree", tables["tl_ctree"], _CTREE_FLOATS,
+                               dev)
+    if ctree.shape[0] < inst.shape[0]:
+        raise ValueError("tl_ctree holds fewer header rows than tl_inst has "
+                         "instances")
     lib = native.library()
     need, have = stack_entries(tables), lib.ignis_tlas_stack_entries()
     if need > have:
@@ -496,7 +709,7 @@ def _launch(tables, org, d, tmin, tmax, mask_bit, any_hit):
     with native.launch_guard(dev):
         err = lib.ignis_tlas(
             top.data_ptr(), tris.data_ptr(), clust.data_ptr(),
-            inst.data_ptr(), org.data_ptr(), d.data_ptr(), tmin.data_ptr(),
+            inst.data_ptr(), ctree.data_ptr(), org.data_ptr(), d.data_ptr(), tmin.data_ptr(),
             tmax.data_ptr(), n, int(mask_bit), int(any_hit),
             *(o.data_ptr() for o in out),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -90,14 +90,15 @@ def big_scene(n_spheres=25, subdiv=5):
     }
 
 
-def instanced_scene(n_side=32, subdiv=3):
+def instanced_scene(n_side=32, subdiv=3, second_subdiv=None):
     """`n_side * n_side` entities that share ONE icosphere shape, each with
     its own scale, rotation and translation and one of three materials in
     turn (diffuse, conductor, dielectric), over a floor under a plane area
     light and a constant environment, plus four analytic spheres under a
     uniform scale, one of them emissive.  Depth 4, 512x512 film.  With the
     defaults 1024 instances stand for 1.31 M triangles while the pool holds
-    the mesh's 1280."""
+    the mesh's 1280.  With `second_subdiv`, every other entity shares a
+    second icosphere of that subdivision instead (two shapes in the pool)."""
     rng = np.random.default_rng(11)
     pitch = 1.25
     half = 0.5 * pitch * (n_side - 1)
@@ -111,6 +112,9 @@ def instanced_scene(n_side=32, subdiv=3):
     shapes = [
         {"type": "icosphere", "name": "ball", "radius": 0.5,
          "subdivisions": subdiv},
+        *([] if second_subdiv is None else [
+            {"type": "icosphere", "name": "pebble", "radius": 0.5,
+             "subdivisions": second_subdiv}]),
         {"type": "rectangle", "name": "floor", "width": span, "height": span,
          "transform": [{"translate": [0, -1, 0]}, {"rotate": [-90, 0, 0]}]},
         {"type": "rectangle", "name": "lamp", "width": 0.5 * span,
@@ -127,7 +131,9 @@ def instanced_scene(n_side=32, subdiv=3):
         gx, gz = i % n_side, i // n_side
         scale = float(rng.uniform(0.7, 1.1))
         entities.append({
-            "name": f"b{i}", "shape": "ball", "bsdf": mats[i % 3],
+            "name": f"b{i}",
+            "shape": "pebble" if second_subdiv is not None and i % 2 else "ball",
+            "bsdf": mats[i % 3],
             "transform": [
                 {"translate": [gx * pitch - half, 0.5 * scale - 1.0,
                                gz * pitch - half]},

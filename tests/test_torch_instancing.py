@@ -271,6 +271,9 @@ def test_runtime_from_jax_tables_carries_pool_and_spheres():
     assert rt.tables["tl_depth"] == 2
     own = Runtime(scene, width=24, height=24, device="cpu", seed=1)
     assert own.tables["tl_depth"] == 2
+    # and the kernel's cluster tree, derived from the pool's own tables
+    assert "tl_ctree" not in _np_tables(jrt)
+    assert torch.equal(rt.tables["tl_ctree"], own.tables["tl_ctree"])
     rt.step(spi=1)
     own.step(spi=1)
     np.testing.assert_array_equal(rt.currentFrame(), own.currentFrame())
@@ -321,6 +324,9 @@ def test_instanced_scene_is_what_it_says():
     tab = build_accel_tables(cs.tables, instanced=cs.instanced)
     assert tab["tl_tris"].shape == (1280, 16) and tab["tl_depth"] == 4
     assert tab["tl_inst"].shape == (1024, 32) and "bw_tris" in tab
+    # 160 clusters: 20 nodes of 8 clusters, 3 of 64 over them
+    assert tab["tl_ctree"].shape == (1024 + 20 + 3, 8)
+    assert (tab["tl_ctree"][:1024, 0:3] == [2, 1024, 1044]).all()
 
 
 @pytest.mark.cuda

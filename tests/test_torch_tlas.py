@@ -55,7 +55,9 @@ def scenes():
 
 def _port_tables(jrt):
     inst = jrt.scene.instanced
-    return ttl.build_tlas(inst["shapes"], inst["records"])
+    tab = ttl.build_tlas(inst["shapes"], inst["records"])
+    tab["tl_ctree"] = ttl.build_cluster_tree(tab["tl_clust"], tab["tl_inst"])
+    return tab
 
 
 @pytest.mark.parametrize("n,rows", [(3, 1), (8, 1), (25, 9), (100, 73)])
@@ -349,16 +351,296 @@ def test_tlas_cuda_tensor_never_takes_the_plain_version():
     assert ttl.tlas_closest.launches == 0 and ttl.tlas_any.launches == 0
 
 
+# ------------------------------------------------------------ cluster tree
+def _strip_shape(t, seed, dup=True):
+    """A coherent strip of t small triangles along x (consecutive clusters
+    are neighbours), with an exact duplicate of triangle 2 at 5 (one
+    cluster) and of triangle 1 at t - 1 (another cluster)."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-1.0, 1.0, t)
+    v0 = np.stack([x, 0.3 * np.sin(3 * x), np.zeros(t)], 1)
+    v0 += rng.uniform(-0.02, 0.02, (t, 3))
+    e1 = rng.uniform(-0.2, 0.2, (t, 3))
+    e2 = rng.uniform(-0.2, 0.2, (t, 3))
+    if dup and t > 5:
+        for a, b in ((5, 2), (t - 1, 1)):
+            v0[a], e1[a], e2[a] = v0[b], e1[b], e2[b]
+    v0, e1, e2 = (a.astype(F32) for a in (v0, e1, e2))
+    n0 = np.cross(e1, e2)
+    n0 = (n0 / np.maximum(np.linalg.norm(n0, axis=1, keepdims=True),
+                          1e-12)).astype(F32)
+    z2 = np.zeros((t, 2), F32)
+    return {"v0": v0, "e1": e1, "e2": e2, "n0": n0, "n1": n0, "n2": n0,
+            "uv0": z2, "uv1": z2, "uv2": z2}
+
+
+def _pool(n_inst, seed, tris=(72, 520)):
+    """Shapes of len(tris) different cluster counts; `n_inst` instances
+    with random rotation, scale, place and visibility bits, instance 1 an
+    exact copy of instance 0 (every hit on it an equal-t tie)."""
+    rng = np.random.default_rng(seed)
+    shapes = [_strip_shape(t, seed + k) for k, t in enumerate(tris)]
+    recs = []
+    for i in range(n_inst):
+        q, _ = np.linalg.qr(rng.normal(0, 1, (3, 3)))
+        lin = q * rng.uniform(0.5, 1.5)
+        tw = np.concatenate([lin, rng.uniform(-4, 4, (3, 1))], 1)
+        tl = np.linalg.inv(np.concatenate([tw, [[0, 0, 0, 1]]]))[:3]
+        nmat = np.linalg.inv(lin).T
+        recs.append((i % len(shapes), tl.astype(F32), tw.astype(F32),
+                     nmat.astype(F32), i, int(rng.integers(1, 16))))
+    if n_inst > 1:
+        recs[1] = recs[0][:4] + (1,) + recs[0][5:]
+    tab = ttl.build_tlas(shapes, recs)
+    tab["tl_ctree"] = ttl.build_cluster_tree(tab["tl_clust"], tab["tl_inst"])
+    return tab
+
+
+def _aimed_rays(tab, n, seed):
+    """Rays from [-6, 6]^3, each aimed near a random instance's box centre."""
+    rng = np.random.default_rng(seed)
+    org = rng.uniform(-6, 6, (n, 3)).astype(F32)
+    inst = tab["tl_inst"]
+    pick = inst[rng.integers(0, inst.shape[0], n)]
+    aim = 0.5 * (pick[:, 0:3] + pick[:, 3:6]) + rng.normal(0, 0.3, (n, 3))
+    d = (aim - org).astype(F32)
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-6)
+    return org, d.astype(F32), np.zeros(n, F32), np.full(n, 1e30, F32)
+
+
+def _brute_node(clust, cl0, ccnt, level, j):
+    """A node's box and validity from the clusters it covers, directly."""
+    part = clust[cl0 + (8 ** level) * j:cl0 + min(ccnt, (8 ** level) * (j + 1))]
+    v = part[part[:, 6] > 0]
+    if not len(v):
+        return None
+    return (np.minimum(v[:, 0:3], v[:, 3:6]).min(0),
+            np.maximum(v[:, 0:3], v[:, 3:6]).max(0))
+
+
+@pytest.mark.parametrize("ccnt", [1, 7, 8, 9, 64, 65, 160])
+def test_cluster_tree_nodes_are_min_max_of_valid_children(ccnt):
+    """Each node is the exact min / max of the valid clusters below it, only
+    of its own shape's range; shapes of <= 8 clusters get no levels."""
+    shapes = [_strip_shape(8 * ccnt - 3, 1), _strip_shape(8 * 11, 2)]
+    ident = np.eye(3, 4, dtype=F32)
+    recs = [(k % 2, ident, ident, np.eye(3, dtype=F32), k, 0xF)
+            for k in range(5)]
+    tab = ttl.build_tlas(shapes, recs)
+    clust = tab["tl_clust"].copy()
+    clust[1::5, 6] = 0.0                      # some clusters invalid
+    clust[2::7, 0:3] = clust[2::7, 3:6] + 0.5  # some boxes inverted
+    tree = ttl.build_cluster_tree(clust, tab["tl_inst"])
+    assert tree.dtype == np.float32 and tree.shape[1] == 8
+    rows_seen = set()
+    for ii in range(5):
+        cl0, cnt = int(tab["tl_inst"][ii, 7]), int(tab["tl_inst"][ii, 8])
+        hdr = tree[ii]
+        levels = int(hdr[0])
+        want = 0
+        while -(-cnt // 8 ** want) > 8:
+            want += 1
+        assert levels == want and (hdr[1 + levels:] == 0).all()
+        for lev in range(1, levels + 1):
+            nodes = -(-cnt // 8 ** lev)
+            base = int(hdr[lev])
+            for j in range(nodes):
+                row = tree[base + j]
+                rows_seen.add((base + j, cl0))
+                ref = _brute_node(clust, cl0, cnt, lev, j)
+                if ref is None:
+                    assert row[6] == 0.0
+                    continue
+                assert row[6] == 1.0 and row[7] == 0.0
+                np.testing.assert_array_equal(row[0:3], ref[0])
+                np.testing.assert_array_equal(row[3:6], ref[1])
+    # one tree per shape: no row is shared by two cluster ranges
+    assert len({r for r, _ in rows_seen}) == len(rows_seen)
+    assert tree.shape[0] == 5 + len(rows_seen)
+
+
+@pytest.mark.parametrize("n", [4, 25, 100])
+def test_cluster_tree_from_reference_tables_equals_the_ports(scenes, n):
+    jrt = scenes(n)
+    mine = _port_tables(jrt)
+    ref = ttl.build_cluster_tree(np.asarray(jrt.tables["tl_clust"]),
+                                 np.asarray(jrt.tables["tl_inst"]))
+    np.testing.assert_array_equal(mine["tl_ctree"], ref)
+    assert (ref[:n, 0] == 1).all()              # 40 clusters: one level
+
+
+def _inv32(x):
+    with np.errstate(all="ignore"):
+        return np.where(x == 0, F32(1e30), F32(1) / x).astype(F32)
+
+
+def _cuda_slab(lo, hi, o, inv, tmn, bt, node):
+    """The kernel's `bw_slab` (node=False) and node test (node=True) in
+    float32, with fminf / fmaxf dropping NaN (np.fmin / np.fmax)."""
+    with np.errstate(all="ignore"):
+        t0 = (lo - o) * inv
+        t1 = (hi - o) * inv
+    a, b = np.fmin(t0, t1), np.fmax(t0, t1)
+    if node:
+        nan = np.isnan(t0) | np.isnan(t1)
+        a = np.where(nan, -np.inf, a).astype(F32)
+        b = np.where(nan, np.inf, b).astype(F32)
+    near = np.fmax(np.fmax(a[..., 0], a[..., 1]), np.fmax(a[..., 2], tmn))
+    far = np.fmin(np.fmin(b[..., 0], b[..., 1]), np.fmin(b[..., 2], bt))
+    return near <= far
+
+
+_SPECIAL = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40,
+                     1e-45, 3e-39, 1e-30, -1e-3, 0.7, -0.6, 1.0], F32)
+
+
+def _hard_rays(clust, n, rng):
+    """Origins on the clusters' faces (box - o = 0 exactly), inside, outside
+    and at +-inf / NaN; directions drawn from NaN, +-inf, +-0, subnormals and
+    ordinary values, component by component."""
+    faces = np.concatenate([clust[:, 0:3], clust[:, 3:6]])
+    org = faces[rng.integers(0, len(faces), n)].copy()
+    pick = rng.random((n, 3))
+    org = np.where(pick < 0.2, rng.uniform(-2, 2, (n, 3)), org).astype(F32)
+    org[rng.random((n, 3)) < 0.02] = np.inf
+    org[rng.random((n, 3)) < 0.02] = np.nan
+    d = _SPECIAL[rng.integers(0, len(_SPECIAL), (n, 3))]
+    d = np.where(rng.random((n, 3)) < 0.3, rng.normal(0, 1, (n, 3)),
+                 d).astype(F32)
+    tmn = np.where(rng.random(n) < 0.8, F32(0), F32(np.nan)).astype(F32)
+    tmn[rng.random(n) < 0.2] = F32(-0.0)
+    bt = np.where(rng.random(n) < 0.5, F32(np.inf),
+                  rng.uniform(0, 3, n)).astype(F32)
+    bt[rng.random(n) < 0.05] = np.nan
+    return org, d, tmn, bt
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_node_passes_where_a_child_passes(seed):
+    """Monotonicity: a cluster that passes `bw_slab` has every ancestor of
+    `build_cluster_tree` pass the node test, on the same best t, for rays
+    with NaN / +-inf / +-0 / zero / subnormal components and origins on the
+    box faces, over boxes that are flat, inverted, NaN or infinite."""
+    rng = np.random.default_rng(seed)
+    nc = 200
+    lo = rng.uniform(-1, 1, (nc, 3)).astype(F32)
+    hi = (lo + rng.uniform(0, 0.5, (nc, 3))).astype(F32)
+    flat = rng.random((nc, 3)) < 0.3
+    hi = np.where(flat, lo, hi)
+    clust = np.zeros((nc, 8), F32)
+    clust[:, 0:3], clust[:, 3:6], clust[:, 6] = lo, hi, 1.0
+    clust[5, 0:3], clust[5, 3:6] = hi[5], lo[5]       # inverted
+    clust[17, 1] = np.nan
+    clust[29, 5] = np.inf
+    clust[41, 0] = -np.inf
+    clust[3::9, 6] = 0.0
+    inst = np.zeros((1, 32), F32)
+    inst[0, 6], inst[0, 8] = 1.0, nc
+    tree = ttl.build_cluster_tree(clust, inst)
+    levels = int(tree[0, 0])
+    assert levels == 2
+    org, d, tmn, bt = _hard_rays(clust, 4000, rng)
+    inv = _inv32(d)
+    o, i = org[:, None, :], inv[:, None, :]
+    tm, b = tmn[:, None], bt[:, None]
+    child = _cuda_slab(clust[:, 0:3], clust[:, 3:6], o, i, tm, b, False)
+    child &= clust[:, 6] > 0
+    assert child.any() and not child.all()
+    for lev in range(1, levels + 1):
+        rows = tree[(tree[0, lev] + np.arange(nc) // 8 ** lev).astype(int)]
+        node = _cuda_slab(rows[:, 0:3], rows[:, 3:6], o, i, tm, b, True)
+        assert (rows[:, 6][child.any(0)] > 0).all()
+        assert not (child & ~node).any(), lev
+
+
+def test_plain_slab_on_a_node_is_not_monotone():
+    """Why the node test leaves an axis with a NaN end unconstrained: a
+    subnormal direction component makes 1 / d infinite, a child flat at the
+    ray's origin is NaN on that axis and ignored, while the same `bw_slab` on
+    a node whose hi is that origin gives far = -inf."""
+    child_lo = np.array([0.0, -1.0, -1.0], F32)
+    child_hi = np.array([0.0, 1.0, 1.0], F32)
+    node_lo = np.array([-1.0, -1.0, -1.0], F32)
+    o = np.array([0.0, 0.0, -5.0], F32)
+    inv = _inv32(np.array([1e-40, 0.0, 1.0], F32))
+    args = (o, inv, F32(0), F32(np.inf))
+    assert np.isinf(inv[0])
+    assert _cuda_slab(child_lo, child_hi, *args, node=False)
+    assert not _cuda_slab(node_lo, child_hi, *args, node=False)
+    assert _cuda_slab(node_lo, child_hi, *args, node=True)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("mask_bit", [0x1, 0x2, 0x4, 0x8])
+@pytest.mark.parametrize("n", [4, 25, 100])
+def test_cluster_walk_equals_the_dense_sweep(scenes, n, mask_bit, any_hit):
+    """The kernel's walk over the cluster tree, in PyTorch: bit-equal to the
+    dense `tlas_traverse_plain`, entering the same clusters (the same
+    triangle tests) after fewer box decisions."""
+    tab = tables_from_numpy(_port_tables(scenes(n)), "cpu")
+    org, d, _, _ = _rays(256, 21 + n)
+    rays = (torch.from_numpy(org), torch.from_numpy(d),
+            torch.full((256,), 1e-3), torch.full((256,), 5.0 if any_hit
+                                                 else 1e30))
+    dense, walk = {}, {}
+    ref = ttl.tlas_traverse_plain(tab, *rays, mask_bit=mask_bit,
+                                  any_hit=any_hit, work=dense)
+    got = ttl.cluster_walk_plain(tab, *rays, mask_bit=mask_bit,
+                                 any_hit=any_hit, work=walk)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert (got[3] >= 0).sum() > 3
+    assert walk["tri_tests"] == dense["tri_tests"]
+    assert walk["node_tests"] + walk["cluster_tests"] < dense["cluster_tests"]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cluster_walk_equals_the_dense_sweep_on_two_shapes(any_hit):
+    """Shapes of 9 and 65 clusters, 40 instances, an exact copy of an
+    instance and duplicated triangles: equal-t ties resolve as in the dense
+    sweep."""
+    pool = _pool(40, 3)
+    tab = tables_from_numpy(pool, "cpu")
+    org, d, _, _ = _aimed_rays(pool, 384, 22)
+    rays = (torch.from_numpy(org), torch.from_numpy(d), torch.zeros(384),
+            torch.full((384,), 8.0 if any_hit else 1e30))
+    for mb in (0x1, 0x4):
+        ref = ttl.tlas_traverse_plain(tab, *rays, mask_bit=mb,
+                                      any_hit=any_hit)
+        got = ttl.cluster_walk_plain(tab, *rays, mask_bit=mb, any_hit=any_hit)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert (got[3] >= 0).sum() > 10
+
+
 @pytest.mark.cuda
 def test_tlas_kernel_matches_plain_on_the_card(scenes):
+    """1 to 65553 rays over 1 to 600 instances of two shapes of 9 and 65
+    clusters (and the fixture's 25 icospheres), every mask, an exact copy of
+    an instance and duplicated triangles: the kernel's five outputs equal the
+    plain version's, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no interpret "
                     "mode")
-    tab = tables_from_numpy(_port_tables(scenes(25)), "cuda")
-    rays = [torch.from_numpy(a).cuda() for a in _rays(4096, 14)]
-    for any_hit in (False, True):
-        got = ttl.tlas_traverse(tab, *rays, mask_bit=0x4, any_hit=any_hit)
-        ref = ttl.tlas_traverse_plain(tab, *rays, mask_bit=0x4,
-                                      any_hit=any_hit)
-        for a, b in zip(got, ref):
-            assert torch.equal(a, b)
+    fixture = _port_tables(scenes(25))
+    cases = [(fixture, _rays(4096, 14))]
+    for n_inst, n_rays, seed in ((1, 1, 31), (9, 7, 32), (64, 4096, 33),
+                                 (600, 65553, 34), (600, 129, 35)):
+        pool = _pool(n_inst, seed)
+        cases.append((pool, _aimed_rays(pool, n_rays, seed)))
+    for tab, rays in cases:
+        tab = tables_from_numpy(tab, "cuda")
+        org, d, tmin, tmax = (torch.from_numpy(a).cuda() for a in rays)
+        n_rays = org.shape[0]
+        hits = 0
+        for any_hit in (False, True):
+            tm = torch.full_like(tmax, 8.0) if any_hit else tmax
+            for mb in (0x1, 0x2, 0x4, 0x8):
+                got = ttl.tlas_traverse(tab, org, d, tmin, tm, mask_bit=mb,
+                                        any_hit=any_hit)
+                ref = ttl.tlas_traverse_plain(tab, org, d, tmin, tm,
+                                              mask_bit=mb, any_hit=any_hit)
+                for a, b in zip(got, ref):
+                    assert torch.equal(a, b), (n_rays, any_hit, mb)
+                hits += int((got[3] >= 0).sum())
+        assert hits > 0 or n_rays < 10
