@@ -9,12 +9,16 @@ port's main path (`Runtime.step` of the `path` technique) on four scenes: the
 demo box through the Baldwin-Weber kernels, the 512,002-triangle field through
 the packet-BVH kernels, 1024 instances of one mesh beside analytic spheres
 through the two-level kernel, and a 32,002-triangle soup with un-accelerated
-tables through the whole-soup Moeller-Trumbore kernel.  The two-level and
-whole-soup kernels are also checked and timed at the width of a tail wave
-(4096 rays, `tail_ms` / `tail_device_ms`); the two-level kernel also on a
-second table set (two shapes, 144 instances), the whole-soup kernel on the
+tables through the whole-soup Moeller-Trumbore kernel.  The packet-BVH,
+two-level and whole-soup kernels are also checked and timed at the width of
+a tail wave (4096 rays, `tail_ms` / `tail_device_ms`); the packet-BVH kernel
+also on a second table set (a 46,082-triangle field), the two-level kernel on
+a second table set (two shapes, 144 instances), the whole-soup kernel on the
 soup twice over, whose copies fall into different ranges of its split sweep;
-both must give the plain versions' bits.  Every phase prints one
+the three must give the plain versions' bits.  Every kernel is also held to
+its plain version, bit for bit, on rays with subnormal, infinite and NaN
+components that start on box faces (the JAX package's float rules,
+`ops.ref_float`).  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -35,6 +39,8 @@ N_RAYS = 65536            # rays per kernel check, = the wave capacity
 TAIL_RAYS = 4096          # rays of a tail wave (`render_wavefront`'s default)
 FILM = 512                # film width and height of the headline scenes
 BIG_SCENE = dict(n_spheres=25, subdiv=5)   # 512,002 triangles
+BIG_SECOND = dict(n_spheres=9, subdiv=4)   # 46,082 triangles: kernel 2's second table set
+RULE_RAYS = 8192          # float-rule rays per kernel check
 SWEEP_SCENE = dict(n_spheres=25, subdiv=3)  # 32,002 triangles, no tables
 T_REL, UV_ABS = 1e-5, 1e-4  # kernel vs plain: |dt|/max(1,|t|), |du|, |dv|
 MEAN_REL = 0.02           # kernel render vs plain render, image mean
@@ -132,6 +138,69 @@ def secondary_rays(primary, closest_plain, tables, seed):
     d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
     return (org2, torch.from_numpy(d2).to(org.device),
             torch.full_like(tmin, 1e-3), torch.full_like(tmax, 3.4028234663852886e38))
+
+
+_SPECIAL = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40,
+                     1e-45, 3e-39, 1e-30, -0.6, 0.7], np.float32)
+
+
+def float_rule_rays(boxes, n, seed, dev):
+    """Rays for the reference's float rules over (B, 6) boxes (lo | hi):
+    origins on a box face on every axis (box - o = 0), some moved off it,
+    a few NaN; directions random, a component in three drawn from NaN,
+    +-inf, +-0 and subnormals; tmin 1e-3 (a few NaN), tmax 1e30 (a few
+    finite, a few NaN)."""
+    r = np.random.default_rng(seed)
+    b = boxes[r.integers(0, boxes.shape[0], n)]
+    org = np.where(r.random((n, 3)) < 0.5, b[:, 0:3], b[:, 3:6])
+    org = np.where(r.random((n, 3)) < 0.1, org + r.normal(0, 1, (n, 3)),
+                   org).astype(np.float32)
+    org[r.random((n, 3)) < 0.01] = np.nan
+    d = r.normal(0, 1, (n, 3))
+    d = np.where(r.random((n, 3)) < 0.35,
+                 _SPECIAL[r.integers(0, len(_SPECIAL), (n, 3))],
+                 d).astype(np.float32)
+    tmin = np.where(r.random(n) < 0.02, np.float32(np.nan),
+                    np.float32(1e-3)).astype(np.float32)
+    tmax = np.where(r.random(n) < 0.1, r.uniform(0.5, 4, n),
+                    1e30).astype(np.float32)
+    tmax[r.random(n) < 0.02] = np.nan
+    return tuple(torch.from_numpy(a).to(dev) for a in (org, d, tmin, tmax))
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def check_float_rules(tb, fns, boxes, recs, dev):
+    """One module's kernels against their plain versions on the float-rule
+    rays under the camera, bounce and shadow masks: every output bit for
+    bit (NaN included), occlusion equal; fails otherwise."""
+    from ignis_tpu_torch.ops.packet_bvh import (MASK_BOUNCE, MASK_CAMERA,
+                                                MASK_SHADOW)
+    closest, closest_plain, any_, any_plain = fns
+    rays = float_rule_rays(np.asarray(boxes, np.float32), RULE_RAYS, 21, dev)
+    hits = occluded = 0
+    for mname, mb in (("camera", MASK_CAMERA), ("bounce", MASK_BOUNCE),
+                      ("shadow", MASK_SHADOW)):
+        got = closest(tb, *rays, mask_bit=mb)
+        ref = closest_plain(tb, *rays, mask_bit=mb)
+        occ = any_(tb, *rays, mask_bit=mb)
+        occ_ref = any_plain(tb, *rays, mask_bit=mb)
+        torch.cuda.synchronize()
+        bad = sum(int((_bits(a) != _bits(b)).sum()) for a, b in zip(got, ref))
+        bad_any = int((occ != occ_ref).sum())
+        if bad or bad_any:
+            fail(f"{closest.__name__}/float-rules/{mname}: {bad} output "
+                 f"values and {bad_any} occlusions differ from the plain "
+                 "versions' bits")
+        hits += int((got[3] >= 0).sum())
+        occluded += int(occ.sum())
+    for fn in (closest, any_):
+        recs[fn.__name__]["rays"] += 3 * RULE_RAYS
+        recs[fn.__name__]["float_rules"] = dict(
+            rays=RULE_RAYS, masks=3, mismatch=0, hits=hits,
+            occluded=occluded)
 
 
 def compare_closest(name, got, ref):
@@ -241,11 +310,16 @@ def check_kernels(rt, closest, closest_plain, any_, any_plain, dev, bound_fn,
                    **side, **bound)
         if tail:
             targs = tuple(x[::N_RAYS // tail].contiguous() for x in args)
+            twork = {}
+            plain(tb, *targs, mask_bit=mb, work=twork)
+            tbound = bound_fn(rt, twork, targs[0].shape[0], fn is any_)
             rec.update(
                 tail_rays=int(targs[0].shape[0]),
                 tail_ms=cuda_ms(lambda: fn(tb, *targs, mask_bit=mb), 10),
                 tail_device_ms=graph_ms(lambda: fn(tb, *targs, mask_bit=mb),
-                                        10))
+                                        10),
+                tail_bound_ms=tbound["bound_ms"],
+                tail_bound_by=tbound["bound_by"])
         out[fn.__name__] = rec
     return out
 
@@ -259,10 +333,90 @@ def bw_bound(rt, work, n, is_any):
 
 
 def pb_bound(rt, work, n, is_any):
-    nbytes = work["rows_touched"] * 512 + n * 32 + n * (1 if is_any else 16)
-    ops = (work["inner_visits"] * 8 * OPS_BOX
-           + work["leaf_visits"] * 8 * OPS_MT_TRI)
-    return _bound(nbytes, ops)
+    """What the function needs, whatever implements it and in whatever
+    order it visits (`work["needed"]`, counted by `pb_adapters` over the
+    final outputs): 8 box tests for each inner row whose box the ray's final
+    window [tmin, t] crosses, a test for each triangle record with non-zero
+    mask bits of each leaf it crosses; an occluded any-hit ray one triangle
+    test.  Bytes: the distinct inner rows of those walks at 28 bytes a
+    child (box and child id), their distinct triangle records at 44 bytes
+    (v0, e1, e2, mask bits, id), rays in, results out.  `bound_walk_*`: the
+    earlier count, over the walk as it went (512-byte rows touched, 8 tests
+    a row visited), which moves with the visiting order."""
+    io = n * 32 + n * (1 if is_any else 16)
+    need = work["needed"]
+    nbytes = io + need.get("inner_rows_touched", 0) * 8 * 28 \
+        + need.get("records_touched", 0) * 44
+    ops = (need.get("inner_visits", 0) * 8 * OPS_BOX
+           + need.get("tri_tests", 0) * OPS_MT_TRI
+           + need.get("occluded", 0) * OPS_MT_TRI)
+    walk = _bound(io + work["rows_touched"] * 512,
+                  work["inner_visits"] * 8 * OPS_BOX
+                  + work["leaf_visits"] * 8 * OPS_MT_TRI)
+    return dict(_bound(nbytes, ops), bound_walk_ms=walk["bound_ms"],
+                bound_walk_by=walk["bound_by"],
+                bound_walk_operations=walk["bound_operations"])
+
+
+def pb_adapters(pb):
+    """`ops.packet_bvh` with plain versions that, with `work=`, also count
+    under `work["needed"]` what the final outputs need (`pb_bound`): the
+    plain walk again over each ray's final window, [tmin, t] (closest) or
+    [tmin, tmax] of the unoccluded rays (any), plus the number of occluded
+    rays."""
+    def packet_bvh_closest_plain(tb, *rays, mask_bit=pb.MASK_BOUNCE,
+                                 work=None):
+        out = pb.packet_bvh_closest_plain(tb, *rays, mask_bit=mask_bit,
+                                          work=work)
+        if work is not None:
+            work["needed"] = {}
+            pb.packet_bvh_closest_plain(tb, *rays[:3], out[0],
+                                        mask_bit=mask_bit,
+                                        work=work["needed"])
+        return out
+
+    def packet_bvh_any_plain(tb, *rays, mask_bit=pb.MASK_SHADOW, work=None):
+        occ = pb.packet_bvh_any_plain(tb, *rays, mask_bit=mask_bit,
+                                      work=work)
+        if work is not None:
+            work["needed"] = {"occluded": int(occ.sum())}
+            pb.packet_bvh_any_plain(tb, *(x[~occ] for x in rays),
+                                    mask_bit=mask_bit, work=work["needed"])
+        return occ
+    return (pb.packet_bvh_closest, packet_bvh_closest_plain,
+            pb.packet_bvh_any, packet_bvh_any_plain)
+
+
+def check_pb_extras(pb, rt2, recs, dev):
+    """Kernel 2 beyond the common checks.  (a) A second table set (a
+    46,082-triangle field of another depth): the 3 ray sets x 3 masks of
+    `check_kernels` at 65536 and at 4096 rays.  (b) Every kernel 2 check
+    must be bit-equal: no prim mismatch, no exact-t tie to forgive, max abs
+    err 0.0."""
+    tb = rt2.tables
+    fns = pb_adapters(pb)
+    sets = {"coherent": camera_rays(rt2, int(np.sqrt(N_RAYS)), dev),
+            "incoherent": random_rays(rt2, N_RAYS, 11, dev)}
+    sets["secondary"] = secondary_rays(sets["coherent"], fns[1], tb, 12)
+    short = {k: tuple(x[::N_RAYS // TAIL_RAYS].contiguous() for x in v)
+             for k, v in sets.items()}
+    rec_c = dict(rays=0, checks=[], max_abs_err=0.0)
+    rec_a = dict(rays=0, checks=[], max_abs_err=0.0)
+    compare_sets(tb, sets, *fns, rec_c, rec_a, width="/second")
+    compare_sets(tb, short, *fns, rec_c, rec_a, width=f"/second/{TAIL_RAYS}")
+    for name, rec in (("packet_bvh_closest", rec_c), ("packet_bvh_any", rec_a)):
+        recs[name]["rays"] += rec["rays"]
+        recs[name]["checks"] += rec["checks"]
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
+                                        rec["max_abs_err"])
+    recs["packet_bvh_closest"]["second_table"] = dict(
+        triangles=int(tb["tri_v0"].shape[0]), pb_rows=list(tb["pb_rows"].shape),
+        pb_depth=int(tb["pb_depth"]), pb_nodes=list(tb["pb_nodes"].shape))
+    rc = recs["packet_bvh_closest"]
+    ties = sum(c["ties"] for c in rc["checks"])
+    if rc["max_abs_err"] != 0.0 or ties:
+        fail(f"packet_bvh_closest: not the plain version's bits (max abs err "
+             f"{rc['max_abs_err']}, {ties} exact-t ties with another prim)")
 
 
 def tlas_bound(rt, work, n, is_any):
@@ -594,6 +748,8 @@ def main():
     rt_big = Runtime(big_scene(**BIG_SCENE), width=FILM, height=FILM,
                      device=dev)
     sec = rt_big.stats.sections
+    rt_big2 = Runtime(big_scene(**BIG_SECOND), width=FILM, height=FILM,
+                      device=dev)
     t2 = time.perf_counter()
     rt_inst = Runtime(instanced_scene(), width=FILM, height=FILM, device=dev)
     isec = rt_inst.stats.sections
@@ -623,24 +779,47 @@ def main():
          big_compile_seconds=round(sec["loading"].total, 3),
          big_table_build_seconds=round(
              sec["build_bvh"].total + sec["build_traversal_tables"].total, 3),
+         big_pb_nodes_seconds=round(sec["build_pb_nodes"].total, 4),
          big_tris=int(rt_big.tables["tri_v0"].shape[0]),
          pb_rows=list(rt_big.tables["pb_rows"].shape),
-         pb_depth=int(rt_big.tables["pb_depth"]))
+         pb_nodes=list(rt_big.tables["pb_nodes"].shape),
+         pb_depth=int(rt_big.tables["pb_depth"]),
+         big_second_tris=int(rt_big2.tables["tri_v0"].shape[0]))
 
     # ---- 3. kernels, each against its plain version on the card
     t0 = time.perf_counter()
     recs = {}
     recs.update(check_kernels(rt_demo, bw.bw_closest, bw.bw_closest_plain,
                               bw.bw_any, bw.bw_any_plain, dev, bw_bound))
-    recs.update(check_kernels(rt_big, pb.packet_bvh_closest,
-                              pb.packet_bvh_closest_plain, pb.packet_bvh_any,
-                              pb.packet_bvh_any_plain, dev, pb_bound))
+    recs.update(check_kernels(rt_big, *pb_adapters(pb), dev, pb_bound,
+                              tail=TAIL_RAYS))
+    check_pb_extras(pb, rt_big2, recs, dev)
     recs.update(check_kernels(rt_inst, *tlas_adapters(tlas), dev, tlas_bound,
                               tail=TAIL_RAYS))
     check_tlas_extras(tlas, rt_two, recs, dev)
     recs.update(check_kernels(rt_sweep, *mt_adapters(mt, rt_sweep.tables),
                               dev, mt_bound, tail=TAIL_RAYS))
     check_mt_extras(mt, rt_sweep, recs, dev)
+    # every kernel on rays with subnormal, infinite and NaN components that
+    # start on the faces of its own boxes
+    tb = rt_demo.tables
+    check_float_rules(tb, (bw.bw_closest, bw.bw_closest_plain, bw.bw_any,
+                           bw.bw_any_plain),
+                      tb["bw_clusters"][:, :6].cpu(), recs, dev)
+    rows = rt_big.tables["pb_rows"].cpu().numpy()
+    check_float_rules(rt_big.tables, pb_adapters(pb),
+                      rows[rows[:, 126] <= 0.5][:, :48].reshape(-1, 6), recs,
+                      dev)
+    tb = rt_inst.tables
+    top = tb["tl_top"].cpu().numpy()
+    check_float_rules(tb, tlas_adapters(tlas), np.concatenate([
+        tb["tl_inst"][:, :6].cpu().numpy(), tb["tl_clust"][:, :6].cpu().numpy(),
+        top[top[:, 126] <= 0.5][:, :48].reshape(-1, 6)]), recs, dev)
+    tb = rt_sweep.tables
+    corners = torch.stack([tb["tri_v0"], tb["tri_v0"] + tb["tri_e1"],
+                           tb["tri_v0"] + tb["tri_e2"]])
+    check_float_rules(tb, mt_adapters(mt, tb), torch.cat(
+        [corners.amin(0), corners.amax(0)], 1).cpu(), recs, dev)
     emit("kernels", t0, tolerance=dict(t_rel=T_REL, uv_abs=UV_ABS),
          kernels=recs)
 
@@ -662,7 +841,7 @@ def main():
     small = load_and_compile(big_scene(**BIG_SCENE), FILM // 4, FILM // 4)
     small_tables = dict(small.tables)
     # the traversal and shading tables do not depend on the film: reuse them
-    for k in ("pb_rows", "pb_bounds", "pb_depth", "tri_shade"):
+    for k in ("pb_rows", "pb_nodes", "pb_bounds", "pb_depth", "tri_shade"):
         v = rt_big.tables[k]
         small_tables[k] = v.cpu().numpy() if torch.is_tensor(v) else v
     rt_small = Runtime.from_compiled(small, small_tables, device=dev)
@@ -739,6 +918,8 @@ def main():
             coherent_ms=r["coherent_ms"], incoherent_ms=r["incoherent_ms"],
             rays_per_launch=r["rays_per_launch"],
             **{k: r[k] for k in ("tail_rays", "tail_ms", "tail_device_ms",
+                                 "tail_bound_ms", "tail_bound_by",
+                                 "bound_walk_ms", "bound_walk_by",
                                  "bound_dense_ms", "bound_dense_by")
                if k in r}))
     print(smi, flush=True)

@@ -70,7 +70,8 @@ def pack_tri_shade(tables):
 def build_accel_tables(tables, stats=None, instanced=None):
     """Host-side acceleration tables for a compiled scene's numpy tables:
     for the world-space soup the SAH BVH, then packet-BVH rows (>= 4096
-    triangles) or Baldwin-Weber rows (fewer), then the packed shading rows;
+    triangles, with the kernel's copy of them, `pb_nodes`) or Baldwin-Weber
+    rows (fewer), then the packed shading rows;
     for `instanced` (a compiled scene's `instanced` dict of unique shapes and
     instance records, or None) the two-level tables of `ops.tlas` and the
     kernel's cluster tree over them (`tl_ctree`).  Returns a new dict."""
@@ -86,8 +87,14 @@ def build_accel_tables(tables, stats=None, instanced=None):
         tri_flags = np.asarray(tables["ent_flags"])[
             np.asarray(tables["tri_ent"])]
         if ntris >= _PB_MIN_TRIS:
-            from ignis_tpu_torch.ops.packet_bvh import build_packet_bvh
+            from ignis_tpu_torch.ops.packet_bvh import (
+                build_packet_bvh, build_pb_nodes,
+            )
             tables.update(build_packet_bvh(bvh, *geo, tri_flags))
+            t3 = time.perf_counter()
+            tables["pb_nodes"] = build_pb_nodes(tables["pb_rows"])
+            if stats is not None:
+                stats.record("build_pb_nodes", time.perf_counter() - t3)
         else:
             from ignis_tpu_torch.ops.bw_intersect import bw_tables
             tables.update(bw_tables(*geo, tri_flags,
@@ -152,6 +159,10 @@ class Runtime:
             # host, so that a launch only reads the scalar
             from ignis_tpu_torch.ops.tlas import top_depth
             tables = dict(tables, tl_depth=np.int32(top_depth(tables["tl_top"])))
+        if "pb_rows" in tables and "pb_nodes" not in tables:
+            # the packet-BVH kernel's copy of the rows, derived from them
+            from ignis_tpu_torch.ops.packet_bvh import build_pb_nodes
+            tables = dict(tables, pb_nodes=build_pb_nodes(tables["pb_rows"]))
         if "tl_top" in tables and "tl_ctree" not in tables:
             # the kernel's cluster tree, derived from the pool's own tables
             from ignis_tpu_torch.ops.tlas import build_cluster_tree

@@ -36,7 +36,7 @@
 
 namespace {
 
-using ignis::bw_inv;
+using ignis::safe_inv;
 using ignis::bw_slab;
 using ignis::bw_tri_test;
 
@@ -65,7 +65,7 @@ bw_kernel(const float* __restrict__ tris, const float* __restrict__ clusters,
         tmn = tmin_p[i];
         bt = tmax_p[i];
     }
-    const float ix = bw_inv(dx), iy = bw_inv(dy), iz = bw_inv(dz);
+    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     float bu = 0.f, bv = 0.f;
     int bi = -1;
 

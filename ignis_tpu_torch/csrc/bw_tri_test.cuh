@@ -5,21 +5,21 @@
 // ignis_tpu/ops/bw_intersect.py term by term, including the association
 // (nx*ox + ny*oy) + (nz*oz + d0); build with -fmad=false so the products are
 // not contracted and the results equal the plain PyTorch versions bit for bit.
+// Zero tests and slab minima follow the reference's float rules
+// (ref_float.cuh): a subnormal k counts as 0, a NaN in the chain rejects.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "ref_float.cuh"
+
 namespace ignis {
 
 constexpr float kBwTol = 1.1920928955078125e-07f;
 
-// 1/x with the reference's guard for a zero component.
-__device__ __forceinline__ float bw_inv(float x) {
-    return (x == 0.f) ? 1e30f : 1.0f / x;
-}
-
 // Does the ray's [tmn, bt] window cross the box lo = b[0..2], hi = b[3..5]?
+// (ix, iy, iz = safe_inv of the direction; false when the chain holds a NaN)
 __device__ __forceinline__ bool bw_slab(const float* __restrict__ b, float ox, float oy,
                                         float oz, float ix, float iy, float iz,
                                         float tmn, float bt) {
@@ -29,10 +29,10 @@ __device__ __forceinline__ bool bw_slab(const float* __restrict__ b, float ox, f
     const float t1y = (b[4] - oy) * iy;
     const float t0z = (b[2] - oz) * iz;
     const float t1z = (b[5] - oz) * iz;
-    const float near_ = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                              fmaxf(fminf(t0z, t1z), tmn));
-    const float far_ = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                             fminf(fmaxf(t0z, t1z), bt));
+    const float near_ = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
+                                nan_max(nan_min(t0z, t1z), tmn));
+    const float far_ = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
+                               nan_min(nan_max(t0z, t1z), bt));
     return near_ <= far_;
 }
 
@@ -49,7 +49,8 @@ __device__ __forceinline__ bool bw_tri_test(const float* __restrict__ row, int m
     const bool vis = (static_cast<int>(row[12]) & mask_bit) != 0;
     const float m = (nx * ox + ny * oy) + (nz * oz + d0);
     const float kk = nx * dx + ny * dy + nz * dz;
-    const float inv_k = (kk == 0.f) ? 0.f : 1.0f / kk;
+    const bool kz = is_zero(kk);
+    const float inv_k = kz ? 0.f : 1.0f / kk;
     tt = -m * inv_k;
     const float s1 = (b1x * ox + b1y * oy) + (b1z * oz + b1c);
     const float r1 = b1x * dx + b1y * dy + b1z * dz;
@@ -57,7 +58,7 @@ __device__ __forceinline__ bool bw_tri_test(const float* __restrict__ row, int m
     const float s2 = (b2x * ox + b2y * oy) + (b2z * oz + b2c);
     const float r2 = b2x * dx + b2y * dy + b2z * dz;
     v = s2 + tt * r2;
-    return vis && (kk != 0.f) && (u >= -kBwTol) && (v >= -kBwTol) &&
+    return vis && !kz && (u >= -kBwTol) && (v >= -kBwTol) &&
            (u + v <= 1.0f + kBwTol) && (tt >= tmn) && (tt <= bt);
 }
 

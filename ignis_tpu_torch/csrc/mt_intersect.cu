@@ -13,8 +13,9 @@
 //   u = U' inv, v = V' inv, w = 1 - u - v, t = (c.n) inv,
 //   U' = -(r.e2), V' = r.e1
 //
-// and a hit is accepted when det != 0, u, v, w >= -2^-23, tmin <= t <= best
-// and the flag is set.  The closest accepted hit wins, and among equal t the
+// and a hit is accepted when det does not count as 0 (neither zero nor
+// subnormal: the reference's rule, ref_float.cuh), u, v, w >= -2^-23,
+// tmin <= t <= best and the flag is set.  The closest accepted hit wins, and among equal t the
 // highest triangle index (the accept test is t <= best).
 //
 // What bounds it on this card: operations.  A ray moves 32 bytes in and 16
@@ -74,15 +75,15 @@
 // every operation in float32, round to nearest, denormals kept (nvcc's
 // default and PyTorch's).  Every compare is false on a NaN operand, so NaN
 // is never rejected.  Proof that a rejected pair fails the accept test:
-//  * det = 0: not accepted whatever u, v, w.  det = +-inf: a is inf and no
-//    compare holds.  |det| < 2^-128: inv is inf, u and v are +-inf or NaN
-//    and u, v, w >= tol fails.  So let inv be finite and non-zero: then
-//    inv = (1/det)(1 + e), |e| <= 2^-22 (2^-24 unless inv is denormal).
+//  * |det| < 2^-126 (zero or subnormal): not accepted whatever u, v, w.
+//    det = +-inf: a is inf and no compare holds.  So let 2^-126 <= a < inf:
+//    then inv is finite and non-zero, inv = (1/det)(1 + e), |e| <= 2^-22
+//    (2^-24 unless inv is denormal).
 //  * Us < -fl(2^-20 a): U' is non-zero and opposes det in sign, and
-//    |U'| / a > 0.75 * 2^-20 (the scaling by 2^-20 is exact unless the
-//    product is denormal, where it errs by at most a quarter for
-//    a >= 2^-128).  u = fl(U' inv) is negative with |u| > 2^-21 (or -inf),
-//    below tol = -2^-23.  Likewise v.
+//    |U'| / a > (1 - 2^-4) 2^-20 (the scaling by 2^-20 is exact unless the
+//    product is denormal, where it errs by at most 2^-150, a sixteenth of
+//    2^-20 a for a >= 2^-126).  u = fl(U' inv) is negative with
+//    |u| > 2^-21 (or -inf), below tol = -2^-23.  Likewise v.
 //  * Neither of those, and fl(Us + Vs) > fl((1 + 2^-16) a): then
 //    u, v >= -2^-19 and the real (Us + Vs) / a > 1 + 2^-17; with the
 //    relative errors of inv and of the two products (2^-21 together)
@@ -99,7 +100,11 @@
 
 #include <cuda_runtime.h>
 
+#include "ref_float.cuh"
+
 namespace {
+
+using ignis::is_zero;
 
 constexpr int kThreads = 128;
 constexpr int kTile = 128;    // triangles per shared-memory tile, one a thread
@@ -142,7 +147,7 @@ __device__ __forceinline__ Tuv mt_full(float v0x, float v0y, float v0z, float e1
     const float rz = dx * cy - dy * cx;
     Tuv h;
     h.det = nx * dx + ny * dy + nz * dz;
-    const float inv_det = (h.det == 0.f) ? 0.f : 1.0f / h.det;
+    const float inv_det = is_zero(h.det) ? 0.f : 1.0f / h.det;
     h.u = -(rx * e2x + ry * e2y + rz * e2z) * inv_det;
     h.v = (rx * e1x + ry * e1y + rz * e1z) * inv_det;
     h.w = 1.0f - h.u - h.v;
@@ -280,7 +285,7 @@ mt_sweep(const float* __restrict__ v0, const float* __restrict__ e1,
                         const Tuv h = mt_full(A.x, A.y, A.z, B.x, B.y, B.z, C.x, C.y,
                                               C.z, N.x, N.y, N.z, ox[r], oy[r], oz[r],
                                               dx[r], dy[r], dz[r]);
-                        const bool ok = (h.det != 0.f) && (h.u >= kTol) &&
+                        const bool ok = !is_zero(h.det) && (h.u >= kTol) &&
                                         (h.v >= kTol) && (h.w >= kTol) &&
                                         (h.t >= tmn[r]) && (h.t <= bt[r]) &&
                                         (A.w != 0.f);

@@ -44,31 +44,33 @@
 // fails proves that every cluster below it fails.  A node is tested on the
 // best it sees, never smaller than the best any later cluster below it sees,
 // and a box test is monotone in the best (far = min(.., bt)).  So it is
-// enough that "a child passes => its parent passes" on one best.  Per axis
-// the child contributes a = fminf(t0, t1) to near and b = fmaxf(t0, t1) to
-// far, t = (box - o) * inv, NaN dropped by fminf / fmaxf.  A node takes an
-// axis the same way but leaves it unconstrained (a = -inf, b = +inf) when t0
-// or t1 is NaN (`node_span`).  Cases, inv = bw_inv(d):
-//  - inv finite, non-zero (the 1e30 of a zero component included): box - o
-//    and the product are monotone under round-to-nearest, overflow to inf
-//    included; the node's lo <= min(child lo, hi) and hi >= max(...), so the
-//    node's a <= the child's a and b >= b.  No NaN arises from finite o.
-//  - inv = +-inf (a subnormal component: 1/d overflows): t is NaN where box
-//    == o, else +-inf.  A child axis with box == o at both ends is NaN and
-//    dropped; the node there is NaN at an end (unconstrained) or spans -inf
-//    .. +inf.  Plain `bw_slab` on the node would NOT do: node lo < o = node
-//    hi gives far = -inf while the flat child at o is dropped and may pass.
-//  - inv = +-0 (an infinite component): t is NaN where box - o is infinite,
-//    and the node's box - o is infinite wherever a child's is: unconstrained.
-//  - o or inv NaN, or a NaN box coordinate (it propagates into every node
-//    above: the builder's min / max keep NaN): the node is unconstrained.
-//  - o = +-inf: every t of the axis is equal, or NaN for all, child and node.
-//  - +-0: compared equal; only a decision is kept, never a node's t.
-//  So near(node) <= near(child) and far(node) >= far(child) whenever
-//  near(child) is a number, and child passes => node passes.  The clusters
-//  entered are the dense sweep's, in its order, with the same running best:
-//  the same bits.  tests/test_torch_tlas.py holds the node test to it on rays
-//  with NaN / inf / +-0 / zero / subnormal direction components.
+// enough that "a child passes => its parent passes" on one best.  A child
+// passes `bw_slab` only when no value of its chain is NaN (nan_min / nan_max,
+// the reference's rule, ref_float.cuh); per axis it contributes a = min(t0,
+// t1) to near and b = max(t0, t1) to far, t = (box - o) * inv.  A node takes
+// an axis with fminf / fmaxf but leaves it unconstrained (a = -inf, b = +inf)
+// when t0 or t1 is NaN (`node_span`), and drops a NaN tmn or best.  inv =
+// safe_inv(d) is finite (|inv| <= 2^126, or the 1e30 of a component that
+// counts as 0), +-0 (an infinite component) or NaN.  Cases:
+//  - inv finite, non-zero: box - o and the product are monotone under
+//    round-to-nearest, overflow to inf included; the node's lo <= min(child
+//    lo, hi) and hi >= max(...), so the node's a <= the child's a and b >= b.
+//    A node's end is NaN only where o is infinite and so is a coordinate of a
+//    sibling's box: unconstrained.
+//  - inv = +-0: t is +-0, or NaN where box - o is infinite.  A child that
+//    passes has a finite box - o on that axis; a node's ends are +-0 too
+//    (compared equal to the child's) or NaN (a sibling's infinite
+//    coordinate): unconstrained.
+//  - o or inv NaN: every t of the axis is NaN and no child passes.  A NaN box
+//    coordinate: that child never passes; the builder's min / max keep it
+//    in every node above, whose axis is then unconstrained.
+//  So near(node) <= near(child) and far(node) >= far(child) whenever the
+//  child passes, and child passes => node passes.  The clusters entered are
+//  the dense sweep's, in its order, with the same running best: the same
+//  bits.  (Before the reference's rule for subnormals, 1 / d of a subnormal
+//  component was infinite; that case no longer arises.)  tests/test_torch_tlas.py
+//  holds the node test to it on rays with NaN / inf / +-0 / zero / subnormal
+//  direction components, and shows that `bw_slab` on a node is not enough.
 //
 // (B) Eight lanes a ray (4 rays a warp, 16 a block).  An inner row: lane k
 // tests child k, and the passing children are pushed 0..7 from a ballot onto
@@ -78,9 +80,9 @@
 // kept until the walk leaves it).  Slots and members are decided in order on
 // the running best, which changes only when a cluster is entered, so all of
 // them up to the next entry are decided at once by one ballot of near <=
-// fminf(far_nobt, bt): that is `bw_slab`'s decision bit for bit (fminf drops
-// NaN the same way in any grouping; `near <= far && near <= bt` would differ
-// when every axis is NaN).  An entered cluster: lane k tests triangle k
+// nan_min(far_nobt, bt): that is `bw_slab`'s decision bit for bit and the
+// plain version's `near <= far & near <= bt` (a NaN anywhere makes each
+// false).  An entered cluster: lane k tests triangle k
 // against the best at entry; the sequential `t <= best` sweep leaves the
 // smallest accepted t at the HIGHEST index that reaches it, so the closest
 // entry takes min t, ties to the larger k; the any-hit entry takes the lowest
@@ -97,7 +99,9 @@
 
 namespace {
 
-using ignis::bw_inv;
+using ignis::nan_max;
+using ignis::nan_min;
+using ignis::safe_inv;
 using ignis::bw_slab;
 using ignis::bw_tri_test;
 
@@ -146,7 +150,7 @@ __device__ __forceinline__ void node_span(float lo, float hi, float o, float inv
     b = nan ? __int_as_float(0x7f800000) : fmaxf(t0, t1);
 }
 
-// `bw_slab` without the best-t clip: near <= fminf(far_nobt, bt) is
+// `bw_slab` without the best-t clip: near <= nan_min(far_nobt, bt) is
 // bw_slab(..., bt).
 __device__ __forceinline__ void slab_nobt(const float* __restrict__ b, float ox, float oy,
                                           float oz, float ix, float iy, float iz, float tmn,
@@ -157,8 +161,9 @@ __device__ __forceinline__ void slab_nobt(const float* __restrict__ b, float ox,
     const float t1y = (b[4] - oy) * iy;
     const float t0z = (b[2] - oz) * iz;
     const float t1z = (b[5] - oz) * iz;
-    near_ = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), tmn));
-    far_ = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    near_ = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
+                    nan_max(nan_min(t0z, t1z), tmn));
+    far_ = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)), nan_max(t0z, t1z));
 }
 
 // The node test without the best-t clip.
@@ -201,7 +206,7 @@ tlas_kernel(const float* __restrict__ top, const float* __restrict__ tris,
     const float dx = dir[3 * i + 0], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
     const float tmn = tmin_p[i];
     float bt = tmax_p[i];
-    const float ix = bw_inv(dx), iy = bw_inv(dy), iz = bw_inv(dz);
+    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     float bu = 0.f, bv = 0.f;
     int bi = -1, be = -1;
 
@@ -244,7 +249,7 @@ tlas_kernel(const float* __restrict__ top, const float* __restrict__ tris,
             unsigned slots = bits(cand);
             while (slots && !done) {
                 TLAS_LOOP(1);
-                const unsigned go = bits(snear <= fminf(sfar, bt)) & slots;
+                const unsigned go = bits(snear <= nan_min(sfar, bt)) & slots;
                 if (!go) break;
                 const int s = __ffs(go) - 1;
                 slots &= ~0u << (s + 1);
@@ -262,7 +267,7 @@ tlas_kernel(const float* __restrict__ top, const float* __restrict__ tris,
                 const float ldx = m[0] * dx + m[1] * dy + m[2] * dz;
                 const float ldy = m[4] * dx + m[5] * dy + m[6] * dz;
                 const float ldz = m[8] * dx + m[9] * dy + m[10] * dz;
-                const float lix = bw_inv(ldx), liy = bw_inv(ldy), liz = bw_inv(ldz);
+                const float lix = safe_inv(ldx), liy = safe_inv(ldy), liz = safe_inv(ldz);
                 const int cl0 = static_cast<int>(__ldg(ir + 7));
                 const int ccnt = static_cast<int>(__ldg(ir + 8));
                 const int toff = static_cast<int>(__ldg(ir + 9));
@@ -312,7 +317,9 @@ tlas_kernel(const float* __restrict__ top, const float* __restrict__ tris,
                     // running best (fixed until a cluster is entered): the
                     // first that passes, the ones before it skipped
                     const unsigned todo = gvalid & (0xFFu << (j - gb));
-                    const unsigned pm = bits(gnear <= fminf(gfar, bt)) & todo;
+                    // (a cluster by `bw_slab`'s rule, a node conservatively)
+                    const unsigned pm =
+                        bits(gnear <= (l == 0 ? nan_min(gfar, bt) : fminf(gfar, bt))) & todo;
                     const int pass = pm ? gb + __ffs(pm) - 1 : -1;
                     TLAS_BUMP(l == 0 ? 4 : 3,
                               __popc(pm ? todo & ((2u << (__ffs(pm) - 1)) - 1) : todo));

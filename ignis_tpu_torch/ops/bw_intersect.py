@@ -13,8 +13,9 @@ barycentric solves out of the inner loop:
 
 Per ray-triangle test:  m = n.o + d0, k = n.d, t = -m/k,
 u = (B1.o + b1) + t (B1.d), v = (B2.o + b2) + t (B2.d); hit iff
-u >= -tol, v >= -tol, u+v <= 1+tol, tmin <= t <= t_best, k != 0 and the ray
-class bit is set in the triangle's maskbits.  Later equal-t hits win.
+u >= -tol, v >= -tol, u+v <= 1+tol, tmin <= t <= t_best, k not zero (nor
+subnormal: `ops.ref_float`) and the ray class bit is set in the triangle's
+maskbits.  Later equal-t hits win.
 
 `bw_closest` / `bw_any` launch the CUDA kernel for tensors on the card and
 run the plain PyTorch version (`bw_closest_plain` / `bw_any_plain`) for
@@ -28,6 +29,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ignis_tpu_torch.ops.ref_float import is_zero, safe_inv
 
 TRI_TILE = 8
 _TOL = 1.1920928955078125e-07
@@ -120,7 +123,7 @@ def _tri_test(row, mask_bit, ox, oy, oz, dx, dy, dz, tmin, bt):
     vis = (mbf.to(torch.int32) & mask_bit) != 0
     m = (nx * ox + ny * oy) + (nz * oz + d0)
     k = nx * dx + ny * dy + nz * dz
-    kz = k == 0.0
+    kz = is_zero(k)
     inv_k = torch.where(kz, torch.zeros_like(k),
                         1.0 / torch.where(kz, torch.ones_like(k), k))
     tt = -m * inv_k
@@ -133,13 +136,6 @@ def _tri_test(row, mask_bit, ox, oy, oz, dx, dy, dz, tmin, bt):
     ok = (vis & ~kz & (u >= -_TOL) & (v >= -_TOL)
           & (u + v <= 1.0 + _TOL) & (tt >= tmin) & (tt <= bt))
     return ok, tt, u, v
-
-
-def _inv(x):
-    """1/x with the kernels' guard: 1e30 for a zero component."""
-    z = x == 0.0
-    return torch.where(z, torch.full_like(x, 1e30),
-                       1.0 / torch.where(z, torch.ones_like(x), x))
 
 
 def _sweep_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work=None):
@@ -157,7 +153,7 @@ def _sweep_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work=None):
     bi = torch.full((n,), -1, dtype=torch.int32, device=dev)
     ox, oy, oz = org[:, 0], org[:, 1], org[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-    ix, iy, iz = _inv(dx), _inv(dy), _inv(dz)
+    ix, iy, iz = safe_inv(dx), safe_inv(dy), safe_inv(dz)
     mask_bit = int(mask_bit)
     cl_host = clusters.cpu()
     for c in range(clusters.shape[0]):

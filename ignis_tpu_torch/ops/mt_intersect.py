@@ -9,6 +9,7 @@ Every ray is tested against every triangle in ascending order with
   n = e1 x e2, c = v0 - o, r = d x c, det = n.d, inv = 1/det (0 if det == 0)
   u = -(r.e2) inv, v = (r.e1) inv, w = 1 - u - v, t = (c.n) inv
 
+("det == 0" means zero or subnormal, as in the reference: `ops.ref_float`)
 and a hit is accepted when det != 0, u, v, w >= -2^-23, tmin <= t <= best
 and the triangle's flag in `tri_mask` (a bool per triangle, or None) is set.
 `t <= best` in ascending order means that among equal t the HIGHEST triangle
@@ -43,6 +44,8 @@ from __future__ import annotations
 
 import torch
 
+from ignis_tpu_torch.ops.ref_float import is_zero
+
 _TOL = -1.1920928955078125e-07
 _CHUNK = 256          # triangles per (rays, chunk) block of the plain version
 _REJ_UV = 2.0 ** -20  # margins of the kernel's early rejection
@@ -70,7 +73,7 @@ def _mt_chunk(org, d, v0, e1, e2):
     ry = dz * cx - dx * cz
     rz = dx * cy - dy * cx
     det = nx * dx + ny * dy + nz * dz
-    zero = det == 0.0
+    zero = is_zero(det)
     inv_det = torch.where(zero, torch.zeros_like(det),
                           1.0 / torch.where(zero, torch.ones_like(det), det))
     u = -(rx * e2x + ry * e2y + rz * e2z) * inv_det

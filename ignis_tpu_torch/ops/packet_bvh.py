@@ -15,11 +15,18 @@ ops/bvh.py), one dense (R, 128) float32 table:
   maskbits = 0; lane 126 = 1.  maskbits packs per-ray-class visibility (bit0
   camera, bit1 light, bit2 bounce, bit3 shadow) from the entity flags.
 
+The kernel reads `pb_nodes` (`build_pb_nodes`), derived from `pb_rows` alone:
+the same floats packed to what a walk reads, with each child's kind in its
+parent's entry, so that a visit is one load.  `api.build_accel_tables` builds
+it, and `Runtime` derives it for tables that lack it.
+
 The intersection predicate matches ops/intersect.py `_mt_block`.  Each ray
 walks the tree on its own: pop a row, test its 8 boxes or 8 triangles, push the
-children whose slab interval crosses [tmin, best] in build order.  Among hits
-at exactly equal t the last one tested wins; the reference kernel shares one
-stack among 1024 rays and so tests in another order, which can pick the other
+children whose slab interval crosses [tmin, best].  A closest-hit ray pushes
+them far to near, keyed by (near, child slot), so that the nearest is popped
+first; an any-hit ray pushes them in build order (popped last first).  Among
+hits at exactly equal t the last one tested wins; the reference kernel shares
+one stack among 1024 rays and visits in build order, which can pick the other
 triangle of an exact tie and nothing else.
 
 `packet_bvh_closest` / `packet_bvh_any` launch the CUDA kernel for tensors on
@@ -33,6 +40,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ignis_tpu_torch.ops.ref_float import is_zero, safe_inv
+
 LANES = 128
 WIDTH = 8                     # children per node / triangles per leaf row
 MISSING_F = np.float32(-1e9)  # child-slot sentinel in the enc lane
@@ -45,6 +54,14 @@ MASK_CAMERA = 0x1
 MASK_LIGHT = 0x2
 MASK_BOUNCE = 0x4
 MASK_SHADOW = 0x8
+
+# `pb_nodes` entry codes (int32 bits in float32 lanes): an inner child is the
+# float4 offset of its record (>= 0); a leaf child has bit 31 set, its record
+# count - 1 in bits 28-30 and the float4 offset of its records in bits 0-27;
+# NODE_MISSING is no child (or a leaf with no record that can be hit).
+NODE_MISSING = 0x7FFFFFFF
+_LEAF_BIT = -(1 << 31)
+_PTR_LIMIT = 1 << 28
 
 
 # --------------------------------------------------------------------- build
@@ -163,6 +180,67 @@ def build_packet_bvh(bvh, tri_v0, tri_e1, tri_e2, ent_flags_per_tri):
             "pb_depth": np.int32(max(depth_of.values()))}
 
 
+def build_pb_nodes(pb_rows):
+    """The kernel's copy of `pb_rows`: a (M, 4) float32 table of float4
+    units, every float it holds bit-equal to one of `pb_rows`.
+
+    * Inner records first, one per inner row in row order, 16 float4: child
+      c's [lo.xyz, hi.x] at unit c and [hi.yz, entry code, 0] at unit 8 + c,
+      the box floats as the row holds them (zeros for a missing child).
+    * Then leaf records, one per leaf row that holds a triangle record with
+      non-zero mask bits (the others can never be hit): its n such records
+      in row order as three runs of n float4 (struct of arrays): lanes
+      [0, 4), [4, 8) and [8, 12) of each 16-lane record, i.e. (v0.xyz, e1.x),
+      (e1.yz, e2.xy), (e2.z, maskbits, orig id, 0).
+
+    The root (row 0, always an inner row) is the record at unit 0.  Entry
+    codes: see NODE_MISSING.  Row ids that point at nothing raise."""
+    rows = np.asarray(pb_rows, np.float32)
+    r = rows.shape[0]
+    is_leaf = rows[:, TYPE_LANE] > 0.5
+    if r == 0 or is_leaf[0]:
+        raise ValueError("pb_rows must start with an inner root row")
+    inner = np.nonzero(~is_leaf)[0]
+    leaf = np.nonzero(is_leaf)[0]
+    rec = rows[leaf].reshape(-1, WIDTH, 16)
+    keep = rec[:, :, 9] != 0.0                       # mask bits
+    counts = keep.sum(axis=1)
+    inner_units = 2 * WIDTH * inner.shape[0]
+    leaf_off = inner_units + 3 * np.concatenate([[0], np.cumsum(counts)[:-1]])
+    total = inner_units + 3 * int(counts.sum())
+    if total >= _PTR_LIMIT:
+        raise ValueError(f"pb_nodes of {total} float4 exceed the 2^28 the "
+                         "entry codes address")
+    code = np.full(r, NODE_MISSING, np.int64)
+    code[inner] = 2 * WIDTH * np.arange(inner.shape[0])
+    code[leaf] = np.where(counts > 0, _LEAF_BIT | ((counts - 1) << 28)
+                          | leaf_off, NODE_MISSING)
+    out = np.zeros((total, 4), np.float32)
+    # inner records: (n_inner, 2, 8, 4) units
+    ir = rows[inner]
+    box = ir[:, :6 * WIDTH].reshape(-1, WIDTH, 6)
+    ev = ir[:, 64:64 + WIDTH]
+    present = ev > float(MISSING_F) * 0.5
+    cid = np.where(present, ev, 0).astype(np.int64)
+    if present.any() and (cid[present] >= r).any():
+        raise ValueError("pb_rows has a child id past its last row")
+    ent = np.where(present, code[cid], NODE_MISSING).astype(np.int32)
+    rec_in = np.zeros((inner.shape[0], 2, WIDTH, 4), np.float32)
+    rec_in[:, 0] = box[:, :, 0:4]
+    rec_in[:, 1, :, 0:2] = box[:, :, 4:6]
+    rec_in[:, 1, :, 2] = ent.view(np.float32)
+    out[:inner_units] = rec_in.reshape(-1, 4)
+    # leaf records, struct of arrays over each leaf's kept records: part q
+    # of the j-th kept record of a leaf of n at offset o is unit o + q n + j
+    li, ki = np.nonzero(keep)
+    j = (np.cumsum(keep, axis=1) - 1)[li, ki]
+    n, o = counts[li], leaf_off[li]
+    parts = rec[li, ki, :12].reshape(-1, 3, 4)
+    for q in range(3):
+        out[o + q * n + j] = parts[:, q]
+    return out
+
+
 def stack_entries(depth: int) -> int:
     """Stack a per-ray depth-first walk of a tree of `depth` 8-wide levels
     can need: one pop then up to 8 pushes per level."""
@@ -170,18 +248,15 @@ def stack_entries(depth: int) -> int:
 
 
 # ------------------------------------------------------------- plain version
-def _inv(x):
-    z = x == 0.0
-    return torch.where(z, torch.full_like(x, 1e30),
-                       1.0 / torch.where(z, torch.ones_like(x), x))
-
-
 def _traverse_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work=None):
     """Vectorised per-lane stack traversal: every live lane pops one row per
     round until all stacks are empty.  Lanes that finished are compacted
     away when fewer than half of the working set remain.  `work`, when given,
-    receives what these rays needed: `inner_visits`, `leaf_visits` and
-    `rows_touched` (distinct table rows read)."""
+    receives what these rays needed: `inner_visits`, `leaf_visits`,
+    `tri_tests` (the triangle records with non-zero mask bits of the leaf
+    rows visited: those the kernel tests), `rows_touched` (distinct table
+    rows read), of them `inner_rows_touched`, and `records_touched` (the
+    records with non-zero mask bits of the distinct leaf rows read)."""
     rows = tables["pb_rows"]
     n = org.shape[0]
     dev = org.device
@@ -202,14 +277,20 @@ def _traverse_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work=None):
     lane = torch.arange(n, device=dev)
     ox, oy, oz = org[:, 0], org[:, 1], org[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-    ix, iy, iz = _inv(dx), _inv(dy), _inv(dz)
+    ix, iy, iz = safe_inv(dx), safe_inv(dy), safe_inv(dz)
     tmn = tmin
     bt, bu, bv, bi = out_t.clone(), out_u.clone(), out_v.clone(), out_i.clone()
     stack = torch.zeros((n, cap), dtype=torch.int64, device=dev)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
+    slot = torch.arange(WIDTH, device=dev)
+    # (c, j): slot j is popped after slot c at equal near
+    later_slot = slot[None, :] > slot[:, None]
 
     touched = (torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
                if work is not None else None)
+
+    def bump(key, v):
+        work[key] = work.get(key, 0) + int(v)
 
     def flush():
         out_t[lane] = bt
@@ -238,10 +319,9 @@ def _traverse_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work=None):
         is_leaf = active & (r[:, TYPE_LANE] > 0.5)
         is_inner = active & ~is_leaf
         if work is not None:
-            work["inner_visits"] = (work.get("inner_visits", 0)
-                                    + int(is_inner.sum()))
-            work["leaf_visits"] = (work.get("leaf_visits", 0)
-                                   + int(is_leaf.sum()))
+            bump("inner_visits", is_inner.sum())
+            bump("leaf_visits", is_leaf.sum())
+            bump("tri_tests", (r[is_leaf][:, 9:16 * WIDTH:16] != 0).sum())
             touched[rid[active]] = True
 
         # ---- leaf rows: 8 Moeller-Trumbore tests, in record order
@@ -263,7 +343,7 @@ def _traverse_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work=None):
                 ry = dz * cx - dx * cz
                 rz = dx * cy - dy * cx
                 det = nx * dx + ny * dy + nz * dz
-                dzr = det == 0.0
+                dzr = is_zero(det)
                 inv_det = torch.where(
                     dzr, torch.zeros_like(det),
                     1.0 / torch.where(dzr, torch.ones_like(det), det))
@@ -282,33 +362,49 @@ def _traverse_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work=None):
             if any_hit:
                 sp = torch.where(bi >= 0, torch.zeros_like(sp), sp)
 
-        # ---- inner rows: 8 slab tests, push passing children in build order
-        for c in range(WIDTH):
-            b = 6 * c
-            t0x = (r[:, b + 0] - ox) * ix
-            t1x = (r[:, b + 3] - ox) * ix
-            t0y = (r[:, b + 1] - oy) * iy
-            t1y = (r[:, b + 4] - oy) * iy
-            t0z = (r[:, b + 2] - oz) * iz
-            t1z = (r[:, b + 5] - oz) * iz
+        # ---- inner rows: 8 slab tests; the passing children go on the
+        # stack far to near (closest hit: the nearest, then the lower slot,
+        # is popped first) or in build order (any hit: popped last first)
+        if bool(is_inner.any()):
+            b = r[:, :6 * WIDTH].reshape(m, WIDTH, 6)
+            col = lambda x: x[:, None]
+            t0x = (b[..., 0] - col(ox)) * col(ix)
+            t1x = (b[..., 3] - col(ox)) * col(ix)
+            t0y = (b[..., 1] - col(oy)) * col(iy)
+            t1y = (b[..., 4] - col(oy)) * col(iy)
+            t0z = (b[..., 2] - col(oz)) * col(iz)
+            t1z = (b[..., 5] - col(oz)) * col(iz)
             near = torch.maximum(
                 torch.maximum(torch.minimum(t0x, t1x),
                               torch.minimum(t0y, t1y)),
-                torch.maximum(torch.minimum(t0z, t1z), tmn))
+                torch.maximum(torch.minimum(t0z, t1z), col(tmn)))
             far = torch.minimum(
                 torch.minimum(torch.maximum(t0x, t1x),
                               torch.maximum(t0y, t1y)),
-                torch.minimum(torch.maximum(t0z, t1z), bt))
-            ev = r[:, 64 + c]
-            push = is_inner & (near <= far) & (ev > float(MISSING_F) * 0.5)
+                torch.minimum(torch.maximum(t0z, t1z), col(bt)))
+            ev = r[:, 64:64 + WIDTH]
+            push = (col(is_inner) & (near <= far)
+                    & (ev > float(MISSING_F) * 0.5))
+            if any_hit:
+                rank = torch.cumsum(push, 1) - push.long()
+            else:
+                # children popped after child c: farther, or as near at a
+                # later slot
+                after = ((near[:, None, :] > near[:, :, None])
+                         | ((near[:, None, :] == near[:, :, None])
+                            & later_slot))
+                rank = (push[:, None, :] & after).sum(2)
+            pr, pc = push.nonzero(as_tuple=True)
             # in place: the stack is the largest tensor of the walk
-            slot = torch.where(push, sp, torch.full_like(sp, cap - 1))
-            stack[ar, slot] = torch.where(push, ev.to(torch.int64),
-                                          stack[ar, slot])
-            sp = sp + push.to(torch.int64)
+            stack[pr, sp[pr] + rank[pr, pc]] = ev[pr, pc].to(torch.int64)
+            sp = sp + push.sum(1)
     flush()
     if work is not None:
-        work["rows_touched"] = int(touched.sum())
+        bump("rows_touched", touched.sum())
+        inner = touched & (rows[:, TYPE_LANE] <= 0.5)
+        bump("inner_rows_touched", inner.sum())
+        bump("records_touched",
+             (rows[touched & ~inner][:, 9:16 * WIDTH:16] != 0).sum())
     return out_t, out_u, out_v, out_i
 
 
@@ -330,7 +426,11 @@ def _launch(tables, org, d, tmin, tmax, mask_bit, any_hit):
     from ignis_tpu_torch import native
     org, d, tmin, tmax = native.check_rays(org, d, tmin, tmax)
     dev = org.device
-    rows = native.check_table("pb_rows", tables["pb_rows"], LANES, dev)
+    if "pb_nodes" not in tables:
+        raise ValueError("the kernel walks `pb_nodes`: derive it with "
+                         "build_pb_nodes(pb_rows), as build_accel_tables and "
+                         "Runtime do")
+    nodes = native.check_table("pb_nodes", tables["pb_nodes"], 4, dev)
     lib = native.library()
     need = stack_entries(int(tables["pb_depth"]))
     have = lib.ignis_packet_bvh_stack_entries()
@@ -342,7 +442,7 @@ def _launch(tables, org, d, tmin, tmax, mask_bit, any_hit):
     out_t, out_u, out_v, out_i = native.hit_outputs(n, dev)
     with native.launch_guard(dev):
         err = lib.ignis_packet_bvh(
-            rows.data_ptr(), org.data_ptr(), d.data_ptr(), tmin.data_ptr(),
+            nodes.data_ptr(), org.data_ptr(), d.data_ptr(), tmin.data_ptr(),
             tmax.data_ptr(), n, int(mask_bit), int(any_hit),
             out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

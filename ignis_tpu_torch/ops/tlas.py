@@ -48,9 +48,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ignis_tpu_torch.ops.bw_intersect import (
-    TRI_TILE, _inv, _tri_test, bw_tables,
-)
+from ignis_tpu_torch.ops.bw_intersect import TRI_TILE, _tri_test, bw_tables
+from ignis_tpu_torch.ops.ref_float import safe_inv
 
 LANES = 128
 _TOP_WIDTH = 8                  # children per top-level BVH row
@@ -350,8 +349,8 @@ def _enter_instances(tables, st, sel, iid, mask_bit, work):
     ldy = m[4] * dx + m[5] * dy + m[6] * dz
     ldz = m[8] * dx + m[9] * dy + m[10] * dz
     _bump(work, "instances_entered", sel.shape[0])
-    return (sel, iid, ir, (lox, loy, loz, ldx, ldy, ldz, _inv(ldx), _inv(ldy),
-                           _inv(ldz)), tmn, bt)
+    return (sel, iid, ir, (lox, loy, loz, ldx, ldy, ldz, safe_inv(ldx),
+                           safe_inv(ldy), safe_inv(ldz)), tmn, bt)
 
 
 def _visit_instances(tables, st, sel, iid, mask_bit, any_hit, work):
@@ -602,7 +601,7 @@ def _traverse_plain(tables, org, d, tmin, tmax, mask_bit, any_hit, work,
               stack=torch.zeros((n, cap), dtype=torch.int64, device=dev),
               sp=torch.ones(n, dtype=torch.int64, device=dev))
     for k in ("dx", "dy", "dz"):
-        st["i" + k[1]] = _inv(st[k])
+        st["i" + k[1]] = safe_inv(st[k])
     for k, v in out.items():
         st[k] = v.clone()
 

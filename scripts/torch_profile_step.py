@@ -10,7 +10,8 @@ of the scene(s) with `torch.profiler` (CPU + CUDA activities) and prints, per
 scene, one JSON line: the step's wall time (host clock closed by a
 synchronise), the summed device time of all kernels, the device's idle share
 (1 - device time / wall time), the number of kernels launched, the share of
-the port's traversal kernels, and the ten kernels with the most device time.
+the port's traversal kernels, each traversal kernel's device time and launch
+count, and the ten kernels with the most device time.
 Needs a CUDA device; prints the card's name and power limit first.
 """
 
@@ -62,6 +63,9 @@ def profile_step(name, rt, spi):
         "traversal_kernel_s": trav_s,
         "traversal_share_of_device": trav_s / dev_s if dev_s else None,
         "wave_iterations_total": int(ds[0] + ds[2]),
+        "traversal_kernels": [
+            dict(name=k[:80], device_ms=round(us / 1e3, 4), count=c)
+            for k, us, c in rows if any(t in k for t in _TRAVERSAL_KERNELS)],
         "top_kernels": [dict(name=k[:80], device_ms=round(us / 1e3, 3),
                              count=c) for k, us, c in rows[:10]],
     }), flush=True)

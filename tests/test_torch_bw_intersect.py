@@ -6,7 +6,9 @@ Tolerances: prim ids must be equal except where two triangles give bit-equal
 t (an exact tie: either id is right) or where the reference's per-block
 cluster skip and the port's per-ray skip see a hit within rounding of a box
 face; t to 1e-5 relative and u, v to 1e-4 absolute, because XLA on the CPU
-contracts multiply-adds and eager torch does not.
+contracts multiply-adds and eager torch does not.  On the float-rule rays of
+tests/test_torch_packet_bvh.py (subnormal, infinite and NaN components) prim
+ids must be EQUAL.
 """
 
 import jax.numpy as jnp
@@ -20,6 +22,9 @@ from ignis_tpu.ops.bw_intersect import bw_closest as j_bw_closest
 from ignis_tpu.ops.bw_intersect import bw_tables as j_bw_tables
 from ignis_tpu_torch.convert import tables_from_numpy
 from ignis_tpu_torch.ops import bw_intersect as tbw
+from test_torch_packet_bvh import (
+    RULE_HITS, RULE_RAYS, RULE_TRI, face_rays, rule_rays, same_bits,
+)
 
 
 def _random_soup(t, seed=0):
@@ -60,7 +65,7 @@ def _assert_same_hits(ref, got):
     np.testing.assert_allclose(gt[hit], rt[hit], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(gu[hit], ru[hit], rtol=0, atol=1e-4)
     np.testing.assert_allclose(gv[hit], rv[hit], rtol=0, atol=1e-4)
-    assert (gt[ri < 0] == rt[ri < 0]).all()      # misses keep tmax
+    np.testing.assert_array_equal(gt[ri < 0], rt[ri < 0])  # misses keep tmax
     return int(hit.sum())
 
 
@@ -176,6 +181,35 @@ def test_bw_zero_direction_component_and_dead_lanes():
     assert (got[3][::5] == -1).all()
 
 
+def _rule_case(case, n_faces=512):
+    """BW tables and rays of a float-rule case; "faces": rays on the cluster
+    boxes' faces of a random soup."""
+    if case != "faces":
+        return tbw.bw_tables(*RULE_TRI, np.full(1, 0xF)), rule_rays(case)
+    v0, e1, e2 = _random_soup(300, seed=23)
+    tab = tbw.bw_tables(v0, e1, e2, np.full(300, 0xF),
+                        order=j_build_bvh(v0, e1, e2).tri_order)
+    return tab, face_rays(tab["bw_clusters"][:, :6], n_faces, 24)
+
+
+@pytest.mark.parametrize("case", sorted(RULE_RAYS) + ["faces"])
+def test_bw_float_rules_match_pallas_interpret(case):
+    """Subnormal, infinite and NaN components: the JAX package's results
+    (the subnormal case failed before the port took its float rules)."""
+    tab, rays = _rule_case(case)
+    ref, got = _both(tab, *rays)
+    if case in RULE_HITS:
+        assert got[3].tolist() == RULE_HITS[case]
+    np.testing.assert_array_equal(got[3], ref[3])
+    _assert_same_hits(ref, got)
+    occ_ref = np.asarray(j_bw_any(
+        {k: jnp.asarray(v) for k, v in tab.items()},
+        *(jnp.asarray(a) for a in rays), interpret=True))
+    occ = tbw.bw_any(tables_from_numpy(tab, "cpu"),
+                     *(torch.from_numpy(a) for a in rays)).numpy()
+    np.testing.assert_array_equal(occ, occ_ref)
+
+
 def test_bw_cuda_tensor_never_takes_the_plain_version():
     """The wrapper picks the plain version only because the tensor is on the
     CPU; this is the dispatch condition, checked without a card."""
@@ -183,6 +217,24 @@ def test_bw_cuda_tensor_never_takes_the_plain_version():
     src = inspect.getsource(tbw.bw_closest) + inspect.getsource(tbw.bw_any)
     assert "is_cuda" in src and "try" not in src
     assert tbw.bw_closest.launches == 0 and tbw.bw_any.launches == 0
+
+
+@pytest.mark.cuda
+def test_bw_float_rules_kernel_matches_plain_on_the_card():
+    """The float-rule rays and rays on a soup's cluster faces with special
+    components: the kernel's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no interpret "
+                    "mode")
+    for tab, rays in (_rule_case(None), _rule_case("faces", 8192)):
+        tab = tables_from_numpy(tab, "cuda")
+        args = [torch.from_numpy(a).cuda() for a in rays]
+        for mb in (0x1, 0x8):
+            got = tbw.bw_closest(tab, *args, mask_bit=mb)
+            ref = tbw.bw_closest_plain(tab, *args, mask_bit=mb)
+            assert all(same_bits(a, b) for a, b in zip(got, ref))
+            assert torch.equal(tbw.bw_any(tab, *args, mask_bit=mb),
+                               tbw.bw_any_plain(tab, *args, mask_bit=mb))
 
 
 @pytest.mark.cuda

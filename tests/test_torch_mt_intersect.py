@@ -13,7 +13,9 @@ t to 1e-5 relative and u, v to 1e-4 absolute, because XLA on the CPU
 contracts multiply-adds and the oracle sums with a reduction.  The plain
 version against a triangle-by-triangle sweep written like the CUDA kernel:
 EQUAL, bit for bit.  The kernel's early rejection (`_mt_reject`) against
-the full sequence: an implication, no tolerance.
+the full sequence: an implication, no tolerance.  On the float-rule rays of
+tests/test_torch_packet_bvh.py (subnormal, infinite and NaN components) prim
+ids must be EQUAL.
 """
 
 import functools
@@ -32,6 +34,9 @@ from ignis_tpu.ops import intersect as j_int
 from ignis_tpu.ops import pallas_intersect as j_pal
 from ignis_tpu_torch.ops import intersect as t_int
 from ignis_tpu_torch.ops import mt_intersect as mt
+from test_torch_packet_bvh import (
+    RULE_HITS, RULE_RAYS, RULE_TRI, face_rays, rule_rays, same_bits,
+)
 
 F32 = np.float32
 
@@ -75,7 +80,7 @@ def _assert_same_hits(ref, got):
     np.testing.assert_allclose(gt[hit], rt[hit], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(gu[hit], ru[hit], rtol=0, atol=1e-4)
     np.testing.assert_allclose(gv[hit], rv[hit], rtol=0, atol=1e-4)
-    assert (gt[ri < 0] == rt[ri < 0]).all()      # misses keep tmax
+    np.testing.assert_array_equal(gt[ri < 0], rt[ri < 0])  # misses keep tmax
     return int(hit.sum())
 
 
@@ -126,6 +131,34 @@ def test_mt_any_matches_pallas_interpret_and_the_oracles(pallas_interpret,
                                     tri_mask=_t(m)[0]).numpy()):
         # a hit within an ulp of tmin/tmax may fall on either side
         assert (got != np.asarray(ref)).sum() <= 1
+
+
+def _rule_case(case, n_faces=512):
+    """Triangles and rays of a float-rule case; "faces": rays on the faces
+    of a random soup's triangle boxes."""
+    if case != "faces":
+        return RULE_TRI, rule_rays(case)
+    tris = _soup(300, 25)
+    v = np.stack([tris[0], tris[0] + tris[1], tris[0] + tris[2]])
+    boxes = np.concatenate([v.min(0), v.max(0)], 1)
+    return tris, face_rays(boxes, n_faces, 26)
+
+
+@pytest.mark.parametrize("case", sorted(RULE_RAYS) + ["faces"])
+def test_mt_float_rules_match_pallas_interpret(pallas_interpret, case):
+    """Subnormal, infinite and NaN components: the JAX package's results
+    (the subnormal case failed before the port took its float rules: a
+    subnormal determinant is 0 for the reference)."""
+    tris, rays = _rule_case(case)
+    ref = j_pal.pallas_intersect_closest(*_j(*rays, *tris))
+    got = [a.numpy() for a in mt.mt_closest(*_t(*rays, *tris))]
+    if case in RULE_HITS:
+        assert got[3].tolist() == RULE_HITS[case]
+    np.testing.assert_array_equal(got[3], np.asarray(ref[3]))
+    _assert_same_hits(ref, got)
+    occ = mt.mt_any(*_t(*rays, *tris)).numpy()
+    np.testing.assert_array_equal(
+        occ, np.asarray(j_pal.pallas_intersect_any(*_j(*rays, *tris))))
 
 
 def _sweep_tri_by_tri(rays, v0, e1, e2, mask, any_hit):
@@ -413,6 +446,21 @@ def test_ranges_cover_the_soup_and_fill_the_card(n, ntris):
     assert ranges <= 65535
     # enough blocks for every multiprocessor, or every tile its own range
     assert ray_blocks * ranges >= per_sm * sms / 2 or per == 1
+
+
+@pytest.mark.cuda
+def test_mt_float_rules_kernel_matches_plain_on_the_card():
+    """The float-rule rays and rays on a soup's triangle boxes with special
+    components: the kernel's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no interpret "
+                    "mode")
+    for tris, rays in (_rule_case(None), _rule_case("faces", 8192)):
+        args = [a.cuda() for a in _t(*rays, *tris)]
+        got = mt.mt_closest(*args)
+        ref = mt.mt_closest_plain(*args)
+        assert all(same_bits(a, b) for a, b in zip(got, ref))
+        assert torch.equal(mt.mt_any(*args), mt.mt_any_plain(*args))
 
 
 @pytest.mark.cuda

@@ -12,7 +12,8 @@ per ray), so the t of the two still agree to 1e-5.  XLA on the CPU contracts
 multiply-adds and eager torch does not, hence 1e-5 and not 0.  The plain
 version against a ray-by-ray walk written like the CUDA kernel: EQUAL, bit
 for bit, since the kernel is held to the plain version the same way on the
-card.
+card.  On the float-rule rays of tests/test_torch_packet_bvh.py (subnormal,
+infinite and NaN components) pool rows and instances must be EQUAL.
 """
 
 import inspect
@@ -27,6 +28,9 @@ from ignis_tpu.ops import bw_tlas as jtl
 from ignis_tpu_torch.convert import tables_from_numpy
 from ignis_tpu_torch.ops import tlas as ttl
 from test_instancing import _scene
+from test_torch_packet_bvh import (
+    RULE_HITS, RULE_RAYS, RULE_TRI, face_rays, rule_rays, same_bits,
+)
 
 TABLE_KEYS = ("tl_tris", "tl_clust", "tl_shade", "tl_inst", "tl_norm",
               "tl_top")
@@ -216,9 +220,10 @@ def _walk_ray_by_ray(tab, rays, mask_bit, any_hit):
     top, tris, clust, inst = (np.asarray(tab[k], F32) for k in (
         "tl_top", "tl_tris", "tl_clust", "tl_inst"))
     tol, one = F32(1.1920928955078125e-07), F32(1.0)
+    tiny = np.finfo(F32).tiny          # below it a float counts as 0
 
     def inv(x):
-        return F32(1e30) if x == 0 else one / x
+        return F32(1e30) if abs(x) < tiny else one / x
 
     def slab(b, o, i, tmn, bt):
         t0, t1 = (b[0:3] - o) * i, (b[3:6] - o) * i
@@ -270,14 +275,15 @@ def _walk_ray_by_ray(tab, rays, mask_bit, any_hit):
                         mm = (nn[0] * lo[0] + nn[1] * lo[1]) \
                             + (nn[2] * lo[2] + tr[3])
                         k = nn[0] * ld[0] + nn[1] * ld[1] + nn[2] * ld[2]
-                        tt = -mm * (F32(0) if k == 0 else one / k)
+                        tt = -mm * (F32(0) if abs(k) < tiny else one / k)
                         u = ((b1[0] * lo[0] + b1[1] * lo[1])
                              + (b1[2] * lo[2] + tr[7])) + tt * (
                             b1[0] * ld[0] + b1[1] * ld[1] + b1[2] * ld[2])
                         v = ((b2[0] * lo[0] + b2[1] * lo[1])
                              + (b2[2] * lo[2] + tr[11])) + tt * (
                             b2[0] * ld[0] + b2[1] * ld[1] + b2[2] * ld[2])
-                        if (int(tr[12]) & mask_bit and k != 0 and u >= -tol
+                        if (int(tr[12]) & mask_bit and abs(k) >= tiny
+                                and u >= -tol
                                 and v >= -tol and u + v <= one + tol
                                 and tmn <= tt <= bt):
                             bt, bi, be = tt, r, iid
@@ -470,21 +476,30 @@ def test_cluster_tree_from_reference_tables_equals_the_ports(scenes, n):
 
 
 def _inv32(x):
+    """`safe_inv`: 1e30 for a zero or subnormal component."""
     with np.errstate(all="ignore"):
-        return np.where(x == 0, F32(1e30), F32(1) / x).astype(F32)
+        return np.where(np.abs(x) < np.finfo(F32).tiny, F32(1e30),
+                        F32(1) / x).astype(F32)
 
 
 def _cuda_slab(lo, hi, o, inv, tmn, bt, node):
-    """The kernel's `bw_slab` (node=False) and node test (node=True) in
-    float32, with fminf / fmaxf dropping NaN (np.fmin / np.fmax)."""
+    """The kernel's `bw_slab` (node=False: minima and maxima keep NaN, as
+    np.minimum / np.maximum do) and node test (node=True: an axis with a NaN
+    end is unconstrained, fminf / fmaxf drop NaN as np.fmin / np.fmax do) in
+    float32."""
     with np.errstate(all="ignore"):
         t0 = (lo - o) * inv
         t1 = (hi - o) * inv
-    a, b = np.fmin(t0, t1), np.fmax(t0, t1)
-    if node:
-        nan = np.isnan(t0) | np.isnan(t1)
-        a = np.where(nan, -np.inf, a).astype(F32)
-        b = np.where(nan, np.inf, b).astype(F32)
+    if not node:
+        lo_, hi_ = np.minimum(t0, t1), np.maximum(t0, t1)
+        near = np.maximum(np.maximum(lo_[..., 0], lo_[..., 1]),
+                          np.maximum(lo_[..., 2], tmn))
+        far = np.minimum(np.minimum(hi_[..., 0], hi_[..., 1]),
+                         np.minimum(hi_[..., 2], bt))
+        return near <= far
+    nan = np.isnan(t0) | np.isnan(t1)
+    a = np.where(nan, -np.inf, np.fmin(t0, t1)).astype(F32)
+    b = np.where(nan, np.inf, np.fmax(t0, t1)).astype(F32)
     near = np.fmax(np.fmax(a[..., 0], a[..., 1]), np.fmax(a[..., 2], tmn))
     far = np.fmin(np.fmin(b[..., 0], b[..., 1]), np.fmin(b[..., 2], bt))
     return near <= far
@@ -554,17 +569,19 @@ def test_node_passes_where_a_child_passes(seed):
 
 
 def test_plain_slab_on_a_node_is_not_monotone():
-    """Why the node test leaves an axis with a NaN end unconstrained: a
-    subnormal direction component makes 1 / d infinite, a child flat at the
-    ray's origin is NaN on that axis and ignored, while the same `bw_slab` on
-    a node whose hi is that origin gives far = -inf."""
-    child_lo = np.array([0.0, -1.0, -1.0], F32)
-    child_hi = np.array([0.0, 1.0, 1.0], F32)
-    node_lo = np.array([-1.0, -1.0, -1.0], F32)
-    o = np.array([0.0, 0.0, -5.0], F32)
-    inv = _inv32(np.array([1e-40, 0.0, 1.0], F32))
+    """Why the node test leaves an axis with a NaN end unconstrained: an
+    infinite direction component makes 1 / d zero, so a node whose box
+    reaches to -inf on that axis (a sibling's does) is NaN there and fails
+    `bw_slab`, while its finite child passes.  (A subnormal component, whose
+    1 / d was infinite before the reference's float rules, is no longer
+    such a case: its reciprocal is 1e30.)"""
+    child_lo = np.array([-1.0, -1.0, -1.0], F32)
+    child_hi = np.array([1.0, 1.0, 1.0], F32)
+    node_lo = np.array([-np.inf, -1.0, -1.0], F32)
+    o = np.array([0.0, 0.0, 0.0], F32)
+    inv = _inv32(np.array([np.inf, 0.0, 1.0], F32))
     args = (o, inv, F32(0), F32(np.inf))
-    assert np.isinf(inv[0])
+    assert inv[0] == 0 and _inv32(np.array([1e-40], F32))[0] == F32(1e30)
     assert _cuda_slab(child_lo, child_hi, *args, node=False)
     assert not _cuda_slab(node_lo, child_hi, *args, node=False)
     assert _cuda_slab(node_lo, child_hi, *args, node=True)
@@ -611,6 +628,93 @@ def test_cluster_walk_equals_the_dense_sweep_on_two_shapes(any_hit):
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
         assert (got[3] >= 0).sum() > 10
+
+
+def _rule_case(case, n_faces=512):
+    """Tables and rays of a float-rule case: the rule triangle under one
+    instance of identity transforms; "faces": a strip shape under an
+    identity instance and seven others, with rays on the faces of the
+    clusters, the instances' world boxes and the top rows' boxes."""
+    eye, ident = np.eye(3, dtype=F32), np.eye(3, 4, dtype=F32)
+    if case != "faces":
+        v0, e1, e2 = RULE_TRI
+        n0 = np.cross(e1, e2).astype(F32)
+        z2 = np.zeros((1, 2), F32)
+        shape = {"v0": v0, "e1": e1, "e2": e2, "n0": n0, "n1": n0,
+                 "n2": n0, "uv0": z2, "uv1": z2, "uv2": z2}
+        tab = ttl.build_tlas([shape], [(0, ident, ident, eye, 0, 0xF)])
+        tab["tl_ctree"] = ttl.build_cluster_tree(tab["tl_clust"],
+                                                 tab["tl_inst"])
+        return tab, rule_rays(case)
+    recs = [(0, ident, ident, eye, 0, 0xF)]
+    rng = np.random.default_rng(28)
+    for i in range(1, 9):
+        tw = np.concatenate([eye, rng.uniform(-4, 4, (3, 1))], 1).astype(F32)
+        tl = np.concatenate([eye, -tw[:, 3:]], 1).astype(F32)
+        recs.append((0, tl, tw, eye, i, 0xF))
+    tab = ttl.build_tlas([_strip_shape(520, 27)], recs)
+    tab["tl_ctree"] = ttl.build_cluster_tree(tab["tl_clust"], tab["tl_inst"])
+    top = tab["tl_top"][tab["tl_top"][:, 126] == 0][:, :48].reshape(-1, 6)
+    boxes = np.concatenate([tab["tl_clust"][:, :6], tab["tl_inst"][:, :6],
+                            top])
+    return tab, face_rays(boxes, n_faces, 29)
+
+
+@pytest.mark.parametrize("case", sorted(RULE_RAYS) + ["faces"])
+def test_tlas_float_rules_match_pallas_interpret(case):
+    """Subnormal, infinite and NaN components: the JAX package's results
+    (the subnormal case failed before the port took its float rules)."""
+    tab, rays = _rule_case(case)
+    jtab = {k: jnp.asarray(v) for k, v in tab.items()}
+    ttab = tables_from_numpy(tab, "cpu")
+    for any_hit in (False, True):
+        ref, got = _both(jtab, ttab, rays, 0xF, any_hit)
+        if case in RULE_HITS and not any_hit:
+            assert got[3].tolist() == RULE_HITS[case]
+        if case == "faces":
+            # rays that start on box faces, where vertices lie, along
+            # near-axis directions graze triangle edges: a hit within
+            # rounding of an edge (XLA contracts multiply-adds and flushes
+            # subnormals in the functionals) may go either way.  The first
+            # gate of this file holds, and the plain version is the
+            # ray-by-ray walk of the kernel, bit for bit.
+            key = (lambda x: x[3] >= 0) if any_hit else (lambda x: x[3])
+            assert (key(got) == key(ref)).mean() > 0.99
+            with np.errstate(all="ignore"):
+                walk = _walk_ray_by_ray(tab, rays, 0xF, any_hit)
+            for a, b in zip(got, walk):
+                np.testing.assert_array_equal(a, b.astype(a.dtype))
+            continue
+        np.testing.assert_array_equal(got[3] >= 0, ref[3] >= 0)
+        if any_hit:
+            continue
+        np.testing.assert_array_equal(got[3], ref[3])
+        np.testing.assert_array_equal(got[4], ref[4])
+        hit = ref[3] >= 0
+        np.testing.assert_allclose(got[0][hit], ref[0][hit], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got[1][hit], ref[1][hit], atol=1e-4)
+        np.testing.assert_allclose(got[2][hit], ref[2][hit], atol=1e-4)
+        np.testing.assert_array_equal(got[0][~hit], ref[0][~hit])
+
+
+@pytest.mark.cuda
+def test_tlas_float_rules_kernel_matches_plain_on_the_card():
+    """The float-rule rays and the face rays with special components: the
+    kernel's bits, closest and any."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no interpret "
+                    "mode")
+    for tab, rays in (_rule_case(None), _rule_case("faces", 8192)):
+        tab = tables_from_numpy(tab, "cuda")
+        args = [torch.from_numpy(a).cuda() for a in rays]
+        for any_hit in (False, True):
+            for mb in (0x1, 0x8):
+                got = ttl.tlas_traverse(tab, *args, mask_bit=mb,
+                                        any_hit=any_hit)
+                ref = ttl.tlas_traverse_plain(tab, *args, mask_bit=mb,
+                                              any_hit=any_hit)
+                assert all(same_bits(a, b) for a, b in zip(got, ref))
 
 
 @pytest.mark.cuda
