@@ -9,16 +9,18 @@ port's main path (`Runtime.step` of the `path` technique) on four scenes: the
 demo box through the Baldwin-Weber kernels, the 512,002-triangle field through
 the packet-BVH kernels, 1024 instances of one mesh beside analytic spheres
 through the two-level kernel, and a 32,002-triangle soup with un-accelerated
-tables through the whole-soup Moeller-Trumbore kernel.  The packet-BVH,
-two-level and whole-soup kernels are also checked and timed at the width of
-a tail wave (4096 rays, `tail_ms` / `tail_device_ms`); the packet-BVH kernel
-also on a second table set (a 46,082-triangle field), the two-level kernel on
-a second table set (two shapes, 144 instances), the whole-soup kernel on the
-soup twice over, whose copies fall into different ranges of its split sweep;
-the three must give the plain versions' bits.  Every kernel is also held to
-its plain version, bit for bit, on rays with subnormal, infinite and NaN
-components that start on box faces (the JAX package's float rules,
-`ops.ref_float`).  Every phase prints one
+tables through the whole-soup Moeller-Trumbore kernel.  Every kernel is also
+checked and timed at the width of a tail wave (4096 rays, `tail_ms` /
+`tail_device_ms`); the Baldwin-Weber kernel also on a second table set (a
+3,842-triangle field, whose cluster tree has two levels), the packet-BVH
+kernel on a second table set (a 46,082-triangle field), the two-level kernel
+on a second table set (two shapes, 144 instances), the whole-soup kernel on
+the soup twice over, whose copies fall into different ranges of its split
+sweep; all four must give the plain versions' bits.  Every kernel is also
+held to its plain version, bit for bit, on rays with subnormal, infinite and
+NaN components that start on box faces (the JAX package's float rules,
+`ops.ref_float`; for the Baldwin-Weber kernel also the faces of its cluster
+tree's nodes).  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -40,6 +42,7 @@ TAIL_RAYS = 4096          # rays of a tail wave (`render_wavefront`'s default)
 FILM = 512                # film width and height of the headline scenes
 BIG_SCENE = dict(n_spheres=25, subdiv=5)   # 512,002 triangles
 BIG_SECOND = dict(n_spheres=9, subdiv=4)   # 46,082 triangles: kernel 2's second table set
+BW_SECOND = dict(n_spheres=3, subdiv=3)    # 3,842 triangles: kernel 1's second table set
 RULE_RAYS = 8192          # float-rule rays per kernel check
 SWEEP_SCENE = dict(n_spheres=25, subdiv=3)  # 32,002 triangles, no tables
 T_REL, UV_ABS = 1e-5, 1e-4  # kernel vs plain: |dt|/max(1,|t|), |du|, |dv|
@@ -198,9 +201,9 @@ def check_float_rules(tb, fns, boxes, recs, dev):
         occluded += int(occ.sum())
     for fn in (closest, any_):
         recs[fn.__name__]["rays"] += 3 * RULE_RAYS
-        recs[fn.__name__]["float_rules"] = dict(
+        recs[fn.__name__].setdefault("float_rules", []).append(dict(
             rays=RULE_RAYS, masks=3, mismatch=0, hits=hits,
-            occluded=occluded)
+            occluded=occluded))
 
 
 def compare_closest(name, got, ref):
@@ -325,11 +328,95 @@ def check_kernels(rt, closest, closest_plain, any_, any_plain, dev, bound_fn,
 
 
 def bw_bound(rt, work, n, is_any):
+    """What the function needs, whatever implements it (`work["needed"]`,
+    counted by `bw_adapters` over the final outputs): a box test and 8
+    triangle tests for each cluster whose box the ray's final window [tmin,
+    t] crosses; an occluded any-hit ray one cluster's box and triangles.
+    The tables once, rays in, results out.  `bound_dense_*`: the same bytes
+    over the dense sweep's work (every ray box-tests every cluster), which
+    the kernel did before it walked a cluster tree."""
     tb = rt.tables
     nbytes = (tb["bw_tris"].numel() + tb["bw_clusters"].numel()) * 4 \
         + n * 32 + n * (1 if is_any else 16)
-    ops = work["box_tests"] * OPS_BOX + work["tri_tests"] * OPS_BW_TRI
-    return _bound(nbytes, ops)
+    need = work["needed"]
+    entered = need["tri_tests"] // 8 + need.get("occluded", 0)
+    dense = _bound(nbytes, work["box_tests"] * OPS_BOX
+                   + work["tri_tests"] * OPS_BW_TRI)
+    return dict(_bound(nbytes, entered * (OPS_BOX + 8 * OPS_BW_TRI)),
+                bound_dense_ms=dense["bound_ms"],
+                bound_dense_by=dense["bound_by"],
+                bound_dense_operations=dense["bound_operations"])
+
+
+def bw_adapters(bw):
+    """`ops.bw_intersect` with plain versions that, with `work=`, also count
+    under `work["needed"]` what the final outputs need (`bw_bound`): the
+    dense sweep again over each ray's final window, [tmin, t] (closest) or
+    [tmin, tmax] of the unoccluded rays (any), plus the number of occluded
+    rays."""
+    def bw_closest_plain(tb, *rays, mask_bit=0xF, work=None):
+        out = bw.bw_closest_plain(tb, *rays, mask_bit=mask_bit, work=work)
+        if work is not None:
+            work["needed"] = {}
+            bw.bw_closest_plain(tb, *rays[:3], out[0], mask_bit=mask_bit,
+                                work=work["needed"])
+        return out
+
+    def bw_any_plain(tb, *rays, mask_bit=0xF, work=None):
+        occ = bw.bw_any_plain(tb, *rays, mask_bit=mask_bit, work=work)
+        if work is not None:
+            work["needed"] = {"occluded": int(occ.sum())}
+            bw.bw_any_plain(tb, *(x[~occ] for x in rays), mask_bit=mask_bit,
+                            work=work["needed"])
+        return occ
+    return bw.bw_closest, bw_closest_plain, bw.bw_any, bw_any_plain
+
+
+def check_bw_extras(bw, rt2, recs, dev):
+    """Kernel 1 beyond the common checks.  (a) A second table set, the
+    3,842-triangle field (481 clusters under a tree of two levels): the 3 ray
+    sets x 3 masks of `check_kernels` at 65536 rays, and its times and bound
+    on the secondary rays (`second_ms`, `second_device_ms`,
+    `second_bound_ms`).  (b) Every kernel 1 check must be bit-equal: no prim
+    mismatch, no exact-t tie to forgive, max abs err 0.0."""
+    from ignis_tpu_torch.ops.packet_bvh import MASK_BOUNCE, MASK_SHADOW
+    tb = rt2.tables
+    fns = bw_adapters(bw)
+    sets = {"coherent": camera_rays(rt2, int(np.sqrt(N_RAYS)), dev),
+            "incoherent": random_rays(rt2, N_RAYS, 11, dev)}
+    sets["secondary"] = secondary_rays(sets["coherent"], fns[1], tb, 12)
+    rec_c = dict(rays=0, checks=[], max_abs_err=0.0)
+    rec_a = dict(rays=0, checks=[], max_abs_err=0.0)
+    compare_sets(tb, sets, *fns, rec_c, rec_a, width="/second")
+    for name, rec in (("bw_closest", rec_c), ("bw_any", rec_a)):
+        recs[name]["rays"] += rec["rays"]
+        recs[name]["checks"] += rec["checks"]
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
+                                        rec["max_abs_err"])
+    org, d, tmin, tmax = sets["secondary"]
+    for fn, plain, args, mb in (
+            (bw.bw_closest, fns[1], (org, d, tmin, tmax), MASK_BOUNCE),
+            (bw.bw_any, fns[3], (org, d, tmin, torch.full_like(tmax, 4.0)),
+             MASK_SHADOW)):
+        work = {}
+        plain(tb, *args, mask_bit=mb, work=work)
+        bound = bw_bound(rt2, work, org.shape[0], fn is bw.bw_any)
+        recs[fn.__name__].update(
+            second_ms=cuda_ms(lambda: fn(tb, *args, mask_bit=mb), 10),
+            second_device_ms=graph_ms(lambda: fn(tb, *args, mask_bit=mb), 10),
+            second_bound_ms=bound["bound_ms"],
+            second_bound_by=bound["bound_by"],
+            second_bound_dense_ms=bound["bound_dense_ms"])
+    recs["bw_closest"]["second_table"] = dict(
+        triangles=int(tb["tri_v0"].shape[0]),
+        clusters=int(tb["bw_clusters"].shape[0]),
+        bw_ctree=list(tb["bw_ctree"].shape),
+        tree_levels=int(tb["bw_ctree"][0, 0]))
+    rc = recs["bw_closest"]
+    ties = sum(c["ties"] for c in rc["checks"])
+    if rc["max_abs_err"] != 0.0 or ties:
+        fail(f"bw_closest: not the plain version's bits (max abs err "
+             f"{rc['max_abs_err']}, {ties} exact-t ties with another prim)")
 
 
 def pb_bound(rt, work, n, is_any):
@@ -744,6 +831,9 @@ def main():
     # ---- scenes: compile and build the tables once
     t0 = time.perf_counter()
     rt_demo = Runtime(demo_scene(), width=FILM, height=FILM, device=dev)
+    t0b = time.perf_counter()
+    rt_bw2 = Runtime(big_scene(**BW_SECOND), width=FILM, height=FILM,
+                     device=dev)
     t1 = time.perf_counter()
     rt_big = Runtime(big_scene(**BIG_SCENE), width=FILM, height=FILM,
                      device=dev)
@@ -757,7 +847,8 @@ def main():
                      height=FILM, device=dev)
     t3 = time.perf_counter()
     rt_sweep = sweep_runtime(FILM, dev)
-    emit("scenes", t0, demo_seconds=round(t1 - t0, 3),
+    emit("scenes", t0, demo_seconds=round(t0b - t0, 3),
+         bw_second_seconds=round(t1 - t0b, 3),
          instanced_seconds=round(t3 - t2, 3),
          instanced_compile_seconds=round(isec["loading"].total, 3),
          instanced_table_build_seconds=round(
@@ -775,6 +866,9 @@ def main():
          sweep_seconds=round(time.perf_counter() - t3, 3),
          sweep_tris=int(rt_sweep.tables["tri_v0"].shape[0]),
          demo_tris=int(rt_demo.tables["tri_v0"].shape[0]),
+         bw_ctree=list(rt_demo.tables["bw_ctree"].shape),
+         bw_second_tris=int(rt_bw2.tables["tri_v0"].shape[0]),
+         bw_second_ctree=list(rt_bw2.tables["bw_ctree"].shape),
          big_seconds=round(t2 - t1, 3),
          big_compile_seconds=round(sec["loading"].total, 3),
          big_table_build_seconds=round(
@@ -789,8 +883,9 @@ def main():
     # ---- 3. kernels, each against its plain version on the card
     t0 = time.perf_counter()
     recs = {}
-    recs.update(check_kernels(rt_demo, bw.bw_closest, bw.bw_closest_plain,
-                              bw.bw_any, bw.bw_any_plain, dev, bw_bound))
+    recs.update(check_kernels(rt_demo, *bw_adapters(bw), dev, bw_bound,
+                              tail=TAIL_RAYS))
+    check_bw_extras(bw, rt_bw2, recs, dev)
     recs.update(check_kernels(rt_big, *pb_adapters(pb), dev, pb_bound,
                               tail=TAIL_RAYS))
     check_pb_extras(pb, rt_big2, recs, dev)
@@ -801,11 +896,12 @@ def main():
                               dev, mt_bound, tail=TAIL_RAYS))
     check_mt_extras(mt, rt_sweep, recs, dev)
     # every kernel on rays with subnormal, infinite and NaN components that
-    # start on the faces of its own boxes
-    tb = rt_demo.tables
-    check_float_rules(tb, (bw.bw_closest, bw.bw_closest_plain, bw.bw_any,
-                           bw.bw_any_plain),
-                      tb["bw_clusters"][:, :6].cpu(), recs, dev)
+    # start on the faces of its own boxes (kernel 1: clusters and tree nodes
+    # of both table sets)
+    for tb in (rt_demo.tables, rt_bw2.tables):
+        check_float_rules(tb, bw_adapters(bw), torch.cat(
+            [tb["bw_clusters"][:, :6], tb["bw_ctree"][1:, :6]]).cpu(), recs,
+            dev)
     rows = rt_big.tables["pb_rows"].cpu().numpy()
     check_float_rules(rt_big.tables, pb_adapters(pb),
                       rows[rows[:, 126] <= 0.5][:, :48].reshape(-1, 6), recs,
@@ -920,7 +1016,10 @@ def main():
             **{k: r[k] for k in ("tail_rays", "tail_ms", "tail_device_ms",
                                  "tail_bound_ms", "tail_bound_by",
                                  "bound_walk_ms", "bound_walk_by",
-                                 "bound_dense_ms", "bound_dense_by")
+                                 "bound_dense_ms", "bound_dense_by",
+                                 "second_ms", "second_device_ms",
+                                 "second_bound_ms", "second_bound_by",
+                                 "second_bound_dense_ms")
                if k in r}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

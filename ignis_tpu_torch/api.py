@@ -71,7 +71,8 @@ def build_accel_tables(tables, stats=None, instanced=None):
     """Host-side acceleration tables for a compiled scene's numpy tables:
     for the world-space soup the SAH BVH, then packet-BVH rows (>= 4096
     triangles, with the kernel's copy of them, `pb_nodes`) or Baldwin-Weber
-    rows (fewer), then the packed shading rows;
+    rows (fewer, with the kernel's cluster tree over them, `bw_ctree`), then
+    the packed shading rows;
     for `instanced` (a compiled scene's `instanced` dict of unique shapes and
     instance records, or None) the two-level tables of `ops.tlas` and the
     kernel's cluster tree over them (`tl_ctree`).  Returns a new dict."""
@@ -96,9 +97,12 @@ def build_accel_tables(tables, stats=None, instanced=None):
             if stats is not None:
                 stats.record("build_pb_nodes", time.perf_counter() - t3)
         else:
-            from ignis_tpu_torch.ops.bw_intersect import bw_tables
+            from ignis_tpu_torch.ops.bw_intersect import (
+                build_bw_ctree, bw_tables,
+            )
             tables.update(bw_tables(*geo, tri_flags,
                                     order=np.asarray(bvh.tri_order)))
+            tables["bw_ctree"] = build_bw_ctree(tables["bw_clusters"])
         t2 = time.perf_counter()
         # the shading rows exist only beside a soup
         tables["tri_shade"] = pack_tri_shade(tables)
@@ -163,6 +167,11 @@ class Runtime:
             # the packet-BVH kernel's copy of the rows, derived from them
             from ignis_tpu_torch.ops.packet_bvh import build_pb_nodes
             tables = dict(tables, pb_nodes=build_pb_nodes(tables["pb_rows"]))
+        if "bw_clusters" in tables and "bw_ctree" not in tables:
+            # the Baldwin-Weber kernel's cluster tree, derived likewise
+            from ignis_tpu_torch.ops.bw_intersect import build_bw_ctree
+            tables = dict(tables, bw_ctree=build_bw_ctree(
+                tables["bw_clusters"]))
         if "tl_top" in tables and "tl_ctree" not in tables:
             # the kernel's cluster tree, derived from the pool's own tables
             from ignis_tpu_torch.ops.tlas import build_cluster_tree

@@ -121,8 +121,8 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.ignis_bw_intersect.argtypes = [_P, _P, _I, _P, _P, _P, _P, _I, _I,
-                                           _I, _P, _P, _P, _P, _P]
+        lib.ignis_bw_intersect.argtypes = [_P, _P, _I, _P, _P, _P, _P, _P, _I,
+                                           _I, _I, _P, _P, _P, _P, _P]
         lib.ignis_bw_intersect.restype = _I
         lib.ignis_packet_bvh.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P,
                                          _P, _P, _P, _P]

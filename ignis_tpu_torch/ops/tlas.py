@@ -33,7 +33,7 @@ each shape's clusters, which the kernel walks in place of the dense sweep.
 launch the CUDA kernel for tensors on the card and run the plain PyTorch
 version for tensors on the CPU.  The plain version sweeps every cluster of an
 entered instance; the kernel skips the subtrees of `tl_ctree` whose box the
-ray's window misses, which changes no decision (`csrc/tlas.cu` has the
+ray's window misses, which changes no decision (`csrc/cluster_walk.cuh` has the
 argument, `cluster_walk_plain` is the same walk in PyTorch for the tests).
 Both decide per ray whether to enter an instance, enter a cluster and push a
 child, from that ray's own [tmin, best] window; the reference decides each of them for a block of 1024 rays at once,
@@ -48,14 +48,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ignis_tpu_torch.ops.bw_intersect import TRI_TILE, _tri_test, bw_tables
+from ignis_tpu_torch.ops.bw_intersect import (
+    CTREE_FLOATS, TRI_TILE, _bump, _slab, _tri_test, _walk_clusters,
+    bw_tables, cluster_levels,
+)
 from ignis_tpu_torch.ops.ref_float import safe_inv
 
 LANES = 128
 _TOP_WIDTH = 8                  # children per top-level BVH row
 _TOP_TYPE_LANE = 126            # 0 = inner row, 1 = instance-leaf row
 _TOP_MISSING = np.float32(-1e9)
-_CTREE_FLOATS = 8               # tl_ctree row: header or node
 
 
 def _build_top_rows(inst):
@@ -205,19 +207,16 @@ def build_cluster_tree(tl_clust, tl_inst):
     derived from `tl_clust` and `tl_inst` alone (so also for tables built by
     the reference package).
 
-    Row i < I is instance i's header: [levels L, first row of level 1, ...,
-    first row of level 7] (all 0 for an invalid instance or a shape of <= 8
-    clusters, which the kernel sweeps cluster by cluster).  The rows after
-    them hold, for each distinct cluster range [cl0, cl0 + ccnt) of the valid
-    instances, levels 1..L of an implicit 8-ary tree over that range in its
-    pool order: node j of level l covers clusters [8^l j, 8^l (j + 1)), its
-    row is [lo(3), hi(3), valid, 0] with lo / hi the float32 min / max of its
-    valid children's min(lo, hi) / max(lo, hi) (NaN kept), valid iff a child
-    is.  Level l + 1 exists while level l has more than 8 nodes."""
+    Row i < I is instance i's header (`bw_intersect.cluster_levels`: [levels
+    L, first row of level 1, ..., first row of level 7]; all 0 for an invalid
+    instance or a shape of <= 8 clusters, which the kernel decides cluster by
+    cluster).  The rows after them hold, for each distinct cluster range
+    [cl0, cl0 + ccnt) of the valid instances, levels 1..L of the implicit
+    8-ary tree over that range in its pool order."""
     clust = np.asarray(tl_clust, np.float32)
     inst = np.asarray(tl_inst, np.float32)
     ninst = inst.shape[0]
-    header = np.zeros((ninst, _CTREE_FLOATS), np.float32)
+    header = np.zeros((ninst, CTREE_FLOATS), np.float32)
     levels_out = []
     nrows = ninst
     trees = {}
@@ -227,35 +226,9 @@ def build_cluster_tree(tl_clust, tl_inst):
         key = (int(inst[ii, 7]), int(inst[ii, 8]))
         if key not in trees:
             cl0, ccnt = key
-            part = clust[cl0:cl0 + ccnt]
-            lo = np.minimum(part[:, 0:3], part[:, 3:6])
-            hi = np.maximum(part[:, 0:3], part[:, 3:6])
-            valid = part[:, 6] > 0.0
-            head = np.zeros(_CTREE_FLOATS, np.float32)
-            level = 0
-            while lo.shape[0] > _TOP_WIDTH:
-                level += 1
-                if level >= _CTREE_FLOATS:
-                    raise ValueError(f"{ccnt} clusters need more than "
-                                     f"{_CTREE_FLOATS - 1} tree levels")
-                n = -(-lo.shape[0] // _TOP_WIDTH)
-                pad = n * _TOP_WIDTH - lo.shape[0]
-                v = np.pad(valid, (0, pad)).reshape(n, _TOP_WIDTH, 1)
-                group = lambda a: np.pad(a, ((0, pad), (0, 0))).reshape(
-                    n, _TOP_WIDTH, 3)
-                # invalid children take no part; NaN of a valid one is kept
-                lo = np.where(v, group(lo), np.float32(np.inf)).min(axis=1)
-                hi = np.where(v, group(hi), np.float32(-np.inf)).max(axis=1)
-                valid = v.any(axis=(1, 2))
-                lo[~valid] = 0.0
-                hi[~valid] = 0.0
-                rows = np.zeros((n, _CTREE_FLOATS), np.float32)
-                rows[:, 0:3], rows[:, 3:6] = lo, hi
-                rows[:, 6] = valid
-                head[level] = np.float32(nrows)
-                levels_out.append(rows)
-                nrows += n
-            head[0] = level
+            head, rows = cluster_levels(clust[cl0:cl0 + ccnt], nrows)
+            levels_out.append(rows)
+            nrows += rows.shape[0]
             trees[key] = head
         header[ii] = trees[key]
     return np.concatenate([header] + levels_out).astype(np.float32)
@@ -299,30 +272,6 @@ def check_encoding(n_soup, tables, n_spheres=0):
 
 
 # ------------------------------------------------------------- plain version
-def _slab(b, lo, hi, ox, oy, oz, ix, iy, iz, tmn):
-    """Slab interval of box lanes b[..., lo:lo+3] / b[..., hi:hi+3]:
-    (near, far without the best-t clip).  The reference's
-    `near <= min(far, best)` equals `near <= far and near <= best`."""
-    t0x = (b[..., lo + 0] - ox) * ix
-    t1x = (b[..., hi + 0] - ox) * ix
-    t0y = (b[..., lo + 1] - oy) * iy
-    t1y = (b[..., hi + 1] - oy) * iy
-    t0z = (b[..., lo + 2] - oz) * iz
-    t1z = (b[..., hi + 2] - oz) * iz
-    near = torch.maximum(
-        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
-        torch.maximum(torch.minimum(t0z, t1z), tmn))
-    far = torch.minimum(
-        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
-        torch.maximum(t0z, t1z))
-    return near, far
-
-
-def _bump(work, key, v):
-    if work is not None:
-        work[key] = work.get(key, 0) + int(v)
-
-
 def _enter_instances(tables, st, sel, iid, mask_bit, work):
     """Working-set lanes `sel` meet the instances `iid` (one each): the enter
     test and, for the lanes that enter, the local ray.  Returns None when no
@@ -445,111 +394,25 @@ def _visit_instances(tables, st, sel, iid, mask_bit, any_hit, work):
     st["bi"][sel], st["be"][sel] = lbi, lbe
 
 
-def _node_slab(b, ox, oy, oz, ix, iy, iz, tmn):
-    """The kernel's node test without the best-t clip: an axis whose slab
-    end is NaN constrains nothing, and NaN is dropped as fminf / fmaxf drop
-    it.  Pass = near <= fmin(far, best)."""
-    inf = torch.full_like(b[..., 0], float("inf"))
-    a, e = [], []
-    for ax, o, i in ((0, ox, ix), (1, oy, iy), (2, oz, iz)):
-        t0, t1 = (b[..., ax] - o) * i, (b[..., ax + 3] - o) * i
-        nan = torch.isnan(t0) | torch.isnan(t1)
-        a.append(torch.where(nan, -inf, torch.fmin(t0, t1)))
-        e.append(torch.where(nan, inf, torch.fmax(t0, t1)))
-    return (torch.fmax(torch.fmax(a[0], a[1]), torch.fmax(a[2], tmn)),
-            torch.fmin(torch.fmin(e[0], e[1]), e[2]))
-
-
-def _aligned_level(c, levels):
-    """Largest level <= `levels` whose nodes are aligned at cluster c > 0."""
-    out = torch.zeros_like(c)
-    for lev in range(1, _CTREE_FLOATS):
-        out = torch.where((c % (1 << (3 * lev)) == 0) & (lev <= levels),
-                          torch.full_like(c, lev), out)
-    return out
-
-
 def _walk_instances(tables, st, sel, iid, mask_bit, any_hit, work):
     """`_visit_instances` with the kernel's walk over the cluster tree
-    (`tl_ctree`) in place of the dense sweep, one node or cluster a step for
-    every lane at once: a node or cluster that fails is skipped (the walk
-    goes on at the largest level aligned past it), a node that passes is
-    descended into, a cluster that passes is entered and its eight triangles
-    are tested in order against the running best."""
+    (`tl_ctree`, `bw_intersect._walk_clusters`) in place of the dense
+    sweep."""
     entered = _enter_instances(tables, st, sel, iid, mask_bit, work)
     if entered is None:
         return
-    tris, clust, ctree = tables["tl_tris"], tables["tl_clust"], tables["tl_ctree"]
     sel, iid, ir, local, tmn, bt = entered
-    lox, loy, loz, ldx, ldy, ldz, lix, liy, liz = local
-    k = sel.shape[0]
-    dev = lox.device
-    cl0, ccnt, toff = (ir[:, q].long() for q in (7, 8, 9))
-    hdr = ctree[iid]
-    levels = hdr[:, 0].long()
-    bases = hdr[:, 1:_CTREE_FLOATS].long()
-    bt = bt.clone()
-    bu, bv, bi, be = (st[key][sel].clone() for key in ("bu", "bv", "bi", "be"))
-    c = torch.zeros(k, dtype=torch.int64, device=dev)
-    lev = levels.clone()
-    while True:
-        a = (c < ccnt).nonzero(as_tuple=True)[0]
-        if a.shape[0] == 0:
-            break
-        la, ca = lev[a], c[a]
-        sh = 3 * la
-        j = ca >> sh
-        node = la > 0
-        nrow = bases[a, torch.clamp_min(la - 1, 0)] + j
-        crow = cl0[a] + j
-        box = torch.where(node[:, None],
-                          ctree[torch.clamp(nrow, 0, ctree.shape[0] - 1)],
-                          clust[torch.clamp(crow, 0, clust.shape[0] - 1)])
-        r = lambda x: x[a]
-        ray = (r(lox), r(loy), r(loz), r(lix), r(liy), r(liz), r(tmn))
-        n_near, n_far = _node_slab(box, *ray)
-        c_near, c_far = _slab(box, 0, 3, *ray)
-        bta = bt[a]
-        valid = box[:, 6] > 0.0
-        passed = valid & torch.where(
-            node, n_near <= torch.fmin(n_far, bta),
-            (c_near <= c_far) & (c_near <= bta))
-        _bump(work, "node_tests", (valid & node).sum())
-        _bump(work, "cluster_tests", (valid & ~node).sum())
-        # a node that passes: its first child next, one level down
-        down = passed & node
-        lev[a[down]] -= 1
-        # a cluster that passes: its eight triangles in order
-        e = passed & ~node
-        ae, je = a[e], j[e]
-        hit = torch.zeros(ae.shape[0], dtype=torch.bool, device=dev)
-        for kk in range(TRI_TILE):
-            rows = torch.clamp_max(toff[ae] + je * TRI_TILE + kk,
-                                   tris.shape[0] - 1)
-            q = lambda x: x[ae]
-            ok, tt, u, v = _tri_test(tris[rows], mask_bit, q(lox), q(loy),
-                                     q(loz), q(ldx), q(ldy), q(ldz), q(tmn),
-                                     bt[ae])
-            if any_hit:
-                ok = ok & ~hit
-            hit = hit | ok
-            la_ = ae[ok]
-            bt[la_] = tt[ok]
-            if not any_hit:
-                bu[la_] = torch.clamp_min(u[ok], 0.0)
-                bv[la_] = torch.clamp_min(v[ok], 0.0)
-            bi[la_] = rows[ok].to(torch.int32)
-            be[la_] = iid[la_].to(torch.int32)
-        _bump(work, "tri_tests", TRI_TILE * ae.shape[0])
-        # past a node or cluster that failed, or a cluster entered
-        past = ~down
-        ap = a[past]
-        c[ap] = (j[past] + 1) << sh[past]
-        lev[ap] = _aligned_level(c[ap], levels[ap])
-        if any_hit:
-            c[ae[hit]] = ccnt[ae[hit]]
+    hdr = tables["tl_ctree"][iid]
+    best = (bt.clone(),) + tuple(st[key][sel].clone()
+                                 for key in ("bu", "bv", "bi"))
+    bt, bu, bv, bi, hit = _walk_clusters(
+        tables["tl_tris"], tables["tl_clust"], tables["tl_ctree"],
+        hdr[:, 0].long(), hdr[:, 1:CTREE_FLOATS].long(),
+        *(ir[:, q].long() for q in (7, 8, 9)), local, tmn, best, mask_bit,
+        any_hit, work)
     st["bt"][sel], st["bu"][sel], st["bv"][sel] = bt, bu, bv
-    st["bi"][sel], st["be"][sel] = bi, be
+    st["bi"][sel] = bi
+    st["be"][sel] = torch.where(hit, iid.to(torch.int32), st["be"][sel])
 
 
 _WORK_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "ix", "iy", "iz", "tmn",
@@ -687,7 +550,7 @@ def _launch(tables, org, d, tmin, tmax, mask_bit, any_hit):
     if "tl_ctree" not in tables:
         raise ValueError("the kernel walks `tl_ctree`: set tl_ctree = "
                          "build_cluster_tree(tl_clust, tl_inst) once")
-    ctree = native.check_table("tl_ctree", tables["tl_ctree"], _CTREE_FLOATS,
+    ctree = native.check_table("tl_ctree", tables["tl_ctree"], CTREE_FLOATS,
                                dev)
     if ctree.shape[0] < inst.shape[0]:
         raise ValueError("tl_ctree holds fewer header rows than tl_inst has "

@@ -67,7 +67,6 @@ RAY_LIGHT = 0x2
 RAY_BOUNCE = 0x4
 RAY_SHADOW = 0x8
 
-_UNPORTED_TABLES = {"bvh_node_min": "the per-lane stack BVH traversal"}
 
 
 def _handle_color(c, clamp_value):
@@ -89,10 +88,11 @@ def _flags_trivial(scene, bit=None):
 
 
 def _check_tables(tables):
-    for key, what in _UNPORTED_TABLES.items():
-        if key in tables:
-            raise NotImplementedError(
-                f"{what} is not ported to ignis_tpu_torch yet")
+    # the reference's dispatch reads the binary-tree tables (`bvh_*`) only
+    # where no packet rows sit beside them
+    if "bvh_node_min" in tables and "pb_rows" not in tables:
+        raise NotImplementedError("the per-lane stack BVH traversal is not "
+                                  "ported to ignis_tpu_torch yet")
 
 
 def sphere_prim_base(tables):

@@ -22,6 +22,7 @@ from ignis_tpu.ops.bw_intersect import bw_closest as j_bw_closest
 from ignis_tpu.ops.bw_intersect import bw_tables as j_bw_tables
 from ignis_tpu_torch.convert import tables_from_numpy
 from ignis_tpu_torch.ops import bw_intersect as tbw
+from test_torch_bw_walk import aimed_rays, scene_tables, soup_tables, table_set
 from test_torch_packet_bvh import (
     RULE_HITS, RULE_RAYS, RULE_TRI, face_rays, rule_rays, same_bits,
 )
@@ -221,12 +222,19 @@ def test_bw_cuda_tensor_never_takes_the_plain_version():
 
 @pytest.mark.cuda
 def test_bw_float_rules_kernel_matches_plain_on_the_card():
-    """The float-rule rays and rays on a soup's cluster faces with special
-    components: the kernel's bits."""
+    """The float-rule rays, and rays with special components on the faces of
+    a soup's cluster boxes and of the 3,842-triangle field's cluster and
+    tree-node boxes: the kernel's bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no interpret "
                     "mode")
-    for tab, rays in (_rule_case(None), _rule_case("faces", 8192)):
+    second = scene_tables("second")
+    cases = [_rule_case(None), _rule_case("faces", 8192),
+             (second, face_rays(np.concatenate([
+                 second["bw_clusters"][:, :6], second["bw_ctree"][1:, :6]]),
+                 8192, 25))]
+    for tab, rays in cases:
+        tab = dict(tab, bw_ctree=tbw.build_bw_ctree(tab["bw_clusters"]))
         tab = tables_from_numpy(tab, "cuda")
         args = [torch.from_numpy(a).cuda() for a in rays]
         for mb in (0x1, 0x8):
@@ -239,19 +247,42 @@ def test_bw_float_rules_kernel_matches_plain_on_the_card():
 
 @pytest.mark.cuda
 def test_bw_kernel_matches_plain_on_the_card():
+    """1 to 65553 rays over soups of 1 to 481 clusters (the demo's 13 and the
+    3,842-triangle field's, with trees of 1 and 2 levels; 1 and 8 clusters,
+    without one), exact ties in one cluster and in two, every mask: the
+    kernel's outputs equal the dense plain version's, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no interpret "
                     "mode")
     t = 733
     v0, e1, e2 = _random_soup(t)
-    tab = tables_from_numpy(tbw.bw_tables(
-        v0, e1, e2, np.full(t, 0xF),
-        order=j_build_bvh(v0, e1, e2).tri_order), "cuda")
-    org, d = _rays(4096)
-    org, d = torch.from_numpy(org).cuda(), torch.from_numpy(d).cuda()
-    tmin = torch.zeros(4096, device="cuda")
-    tmax = torch.full((4096,), 1e30, device="cuda")
-    got = tbw.bw_closest(tab, org, d, tmin, tmax)
-    ref = tbw.bw_closest_plain(tab, org, d, tmin, tmax)
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+    cases = [(soup_tables(v0, e1, e2,
+                          order=j_build_bvh(v0, e1, e2).tri_order),
+              (*_rays(4096), np.zeros(4096, np.float32),
+               np.full(4096, 1e30, np.float32)))]
+    for name, n, seed in (("demo", 65553, 71), ("second", 65553, 72),
+                          ("second", 129, 73), ("second", 1, 74),
+                          ("one_cluster", 4096, 75),
+                          ("eight_clusters", 4096, 76), ("tie", 1000, 77),
+                          ("tie_apart", 1000, 78)):
+        tab = table_set(name)
+        cases.append((tab, aimed_rays(tab, n, seed)))
+    with pytest.raises(ValueError, match="bw_ctree"):
+        tab = tables_from_numpy(cases[0][0], "cuda")
+        del tab["bw_ctree"]
+        tbw.bw_closest(tab, *(torch.from_numpy(a).cuda()
+                              for a in cases[0][1]))
+    for tab, rays in cases:
+        tab = tables_from_numpy(tab, "cuda")
+        org, d, tmin, tmax = (torch.from_numpy(a).cuda() for a in rays)
+        hits = 0
+        for mb in (0x1, 0x2, 0x4, 0x8):
+            got = tbw.bw_closest(tab, org, d, tmin, tmax, mask_bit=mb)
+            ref = tbw.bw_closest_plain(tab, org, d, tmin, tmax, mask_bit=mb)
+            assert all(same_bits(a, b) for a, b in zip(got, ref)), mb
+            seg = torch.full_like(tmax, 4.0)
+            assert torch.equal(tbw.bw_any(tab, org, d, tmin, seg, mask_bit=mb),
+                               tbw.bw_any_plain(tab, org, d, tmin, seg,
+                                                mask_bit=mb))
+            hits += int((got[3] >= 0).sum())
+        assert hits > 0 or org.shape[0] < 10

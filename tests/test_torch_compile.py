@@ -120,8 +120,13 @@ def test_runtime_tables_equal(name):
     tt = tables_to_numpy(trt.tables)
     ntris = jt["tri_v0"].shape[0]
     if ntris < 4096:
-        assert jt.keys() == tt.keys()
+        # beside the Baldwin-Weber rows the kernel's cluster tree, derived
+        # from the reference's clusters alone
+        assert set(tt) - {"bw_ctree"} == set(jt)
         assert "bw_tris" in tt and "pb_rows" not in tt
+        from ignis_tpu_torch.ops.bw_intersect import build_bw_ctree
+        np.testing.assert_array_equal(tt["bw_ctree"],
+                                      build_bw_ctree(jt["bw_clusters"]))
     else:
         # the reference also keeps Baldwin-Weber tables up to 16384
         # triangles; the port builds one kind only, and beside the packet
@@ -133,7 +138,7 @@ def test_runtime_tables_equal(name):
             tt["pb_nodes"].view(np.int32),
             build_pb_nodes(jt["pb_rows"]).view(np.int32))
     assert "tri_shade" in tt
-    _assert_tables_equal(jt, tt, keys=set(tt) - {"pb_nodes"})
+    _assert_tables_equal(jt, tt, keys=set(tt) - {"pb_nodes", "bw_ctree"})
 
 
 def test_pack_tri_shade_equal():

@@ -33,7 +33,7 @@ from ignis_tpu_torch.api import Runtime, build_accel_tables
 from ignis_tpu_torch.convert import runtime_from_jax_tables, tables_from_numpy
 from ignis_tpu_torch.render.integrator import render_wavefront, trace_wave
 from ignis_tpu_torch.scene.compile import load_and_compile as t_compile
-from ignis_tpu_torch.scenes import demo_scene
+from ignis_tpu_torch.scenes import big_scene, demo_scene
 from test_torch_compile import dof_scene, ico_scene, lights_scene
 
 
@@ -175,6 +175,32 @@ def test_runtime_from_jax_tables_same_state(step_frames):
     assert "bw_tris" in rt.tables and "tri_shade" in rt.tables
     rt.step(spi=2)
     np.testing.assert_array_equal(rt.currentFrame(), trt.currentFrame())
+
+
+def test_runtime_from_jax_tables_beside_the_binary_bvh(tmp_path, monkeypatch):
+    """Over 8192 triangles the JAX Runtime adds its binary-BVH tables
+    (`bvh_*`) beside the packet rows; the dispatch never reads them there,
+    so they go through the port as they are: same frame as the port's own
+    Runtime on the same scene and seed.  Without the packet rows they still
+    raise, as that traversal is not ported."""
+    from ignis_tpu_torch.render.integrator import _check_tables
+    monkeypatch.setenv("IGNIS_TPU_CACHE", str(tmp_path))
+    scene = big_scene(n_spheres=8, subdiv=3)
+    jrt = JRuntime(scene, width=16, height=16, seed=5)
+    tables = {k: np.asarray(v) for k, v in jrt.tables.items()}
+    assert jrt.tables["tri_v0"].shape[0] == 10242
+    assert "bvh_node_min" in tables and "pb_rows" in tables
+    rt = runtime_from_jax_tables(jrt.scene, tables, device="cpu", seed=5)
+    rt.step(spi=1)
+    trt = Runtime(scene, width=16, height=16, seed=5, device="cpu")
+    trt.step(spi=1)
+    got, ref = rt.currentFrame(), trt.currentFrame()
+    assert np.isfinite(got).all() and got.mean() > 0
+    assert _lanes_close(got.reshape(-1, 3), ref.reshape(-1, 3)).mean() >= 0.99
+    assert abs(got.mean() - ref.mean()) <= 1e-2 * ref.mean()
+    no_rows = {k: v for k, v in rt.tables.items() if not k.startswith("pb_")}
+    with pytest.raises(NotImplementedError, match="per-lane stack BVH"):
+        _check_tables(no_rows)
 
 
 def test_runtime_reset_and_replay_bitwise(step_frames):

@@ -14,6 +14,9 @@ version against a ray-by-ray walk written like the CUDA kernel: EQUAL, bit
 for bit, since the kernel is held to the plain version the same way on the
 card.  On the float-rule rays of tests/test_torch_packet_bvh.py (subnormal,
 infinite and NaN components) pool rows and instances must be EQUAL.
+The interpret-mode groups live in tests/test_torch_tlas_interpret.py
+(closest hit), tests/test_torch_tlas_any.py (any hit) and
+tests/test_torch_tlas_rules.py (float rules), which use this file's helpers.
 """
 
 import inspect
@@ -28,9 +31,7 @@ from ignis_tpu.ops import bw_tlas as jtl
 from ignis_tpu_torch.convert import tables_from_numpy
 from ignis_tpu_torch.ops import tlas as ttl
 from test_instancing import _scene
-from test_torch_packet_bvh import (
-    RULE_HITS, RULE_RAYS, RULE_TRI, face_rays, rule_rays, same_bits,
-)
+from test_torch_packet_bvh import RULE_TRI, face_rays, rule_rays, same_bits
 
 TABLE_KEYS = ("tl_tris", "tl_clust", "tl_shade", "tl_inst", "tl_norm",
               "tl_top")
@@ -122,31 +123,6 @@ def _assert_gate(ref, got):
     np.testing.assert_allclose(got[0][both], ref[0][both], rtol=1e-5,
                                atol=1e-5)
     return int(hit.sum())
-
-
-@pytest.mark.parametrize("mask_bit", [0x1, 0x4, 0x8])
-@pytest.mark.parametrize("n", [4, 25])
-def test_tlas_closest_matches_pallas_interpret(scenes, n, mask_bit):
-    jrt = scenes(n)
-    ttab = tables_from_numpy(_port_tables(jrt), "cpu")
-    ref, got = _both(jrt.tables, ttab, _rays(512, 5), mask_bit, False)
-    assert _assert_gate(ref, got) > 10
-
-
-@pytest.mark.parametrize("mask_bit", [0x1, 0x4, 0x8])
-@pytest.mark.parametrize("n", [4, 25])
-def test_tlas_any_matches_pallas_interpret(scenes, n, mask_bit):
-    """Any-hit: only `pool_row >= 0` is read."""
-    jrt = scenes(n)
-    ttab = tables_from_numpy(_port_tables(jrt), "cpu")
-    org, d, tmin, _ = _rays(512, 6)
-    rays = (org, d, np.full(512, 1e-3, F32), np.full(512, 5.0, F32))
-    ref, got = _both(jrt.tables, ttab, rays, mask_bit, True)
-    occ_r, occ_g = ref[3] >= 0, got[3] >= 0
-    assert (occ_r != occ_g).sum() <= 1 and occ_g.any() and not occ_g.all()
-    occ = ttl.tlas_any(ttab, *(torch.from_numpy(a) for a in rays),
-                       mask_bit=mask_bit).numpy()
-    assert occ.dtype == np.bool_ and (occ == occ_g).all()
 
 
 @pytest.mark.parametrize("n", [4, 25])
@@ -658,44 +634,6 @@ def _rule_case(case, n_faces=512):
     boxes = np.concatenate([tab["tl_clust"][:, :6], tab["tl_inst"][:, :6],
                             top])
     return tab, face_rays(boxes, n_faces, 29)
-
-
-@pytest.mark.parametrize("case", sorted(RULE_RAYS) + ["faces"])
-def test_tlas_float_rules_match_pallas_interpret(case):
-    """Subnormal, infinite and NaN components: the JAX package's results
-    (the subnormal case failed before the port took its float rules)."""
-    tab, rays = _rule_case(case)
-    jtab = {k: jnp.asarray(v) for k, v in tab.items()}
-    ttab = tables_from_numpy(tab, "cpu")
-    for any_hit in (False, True):
-        ref, got = _both(jtab, ttab, rays, 0xF, any_hit)
-        if case in RULE_HITS and not any_hit:
-            assert got[3].tolist() == RULE_HITS[case]
-        if case == "faces":
-            # rays that start on box faces, where vertices lie, along
-            # near-axis directions graze triangle edges: a hit within
-            # rounding of an edge (XLA contracts multiply-adds and flushes
-            # subnormals in the functionals) may go either way.  The first
-            # gate of this file holds, and the plain version is the
-            # ray-by-ray walk of the kernel, bit for bit.
-            key = (lambda x: x[3] >= 0) if any_hit else (lambda x: x[3])
-            assert (key(got) == key(ref)).mean() > 0.99
-            with np.errstate(all="ignore"):
-                walk = _walk_ray_by_ray(tab, rays, 0xF, any_hit)
-            for a, b in zip(got, walk):
-                np.testing.assert_array_equal(a, b.astype(a.dtype))
-            continue
-        np.testing.assert_array_equal(got[3] >= 0, ref[3] >= 0)
-        if any_hit:
-            continue
-        np.testing.assert_array_equal(got[3], ref[3])
-        np.testing.assert_array_equal(got[4], ref[4])
-        hit = ref[3] >= 0
-        np.testing.assert_allclose(got[0][hit], ref[0][hit], rtol=1e-5,
-                                   atol=1e-5)
-        np.testing.assert_allclose(got[1][hit], ref[1][hit], atol=1e-4)
-        np.testing.assert_allclose(got[2][hit], ref[2][hit], atol=1e-4)
-        np.testing.assert_array_equal(got[0][~hit], ref[0][~hit])
 
 
 @pytest.mark.cuda
