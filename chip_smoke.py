@@ -20,7 +20,13 @@ sweep; all four must give the plain versions' bits.  Every kernel is also
 held to its plain version, bit for bit, on rays with subnormal, infinite and
 NaN components that start on box faces (the JAX package's float rules,
 `ops.ref_float`; for the Baldwin-Weber kernel also the faces of its cluster
-tree's nodes).  Every phase prints one
+tree's nodes).  Then the second path: the materials scene (rough conductor
+and dielectric, plastic, phong, principled, a two-lobe blend and a constant
+normal modifier) through `Runtime.step`; the gradient of the demo's summed
+differentiable render with respect to `mat_colors` at 2^19 lanes
+(`trace_wave(differentiable=True)`, held to the gradient taken with the
+plain traversal); and five SGD steps of `parallel.sharding.train_step` on the
+materials scene, whose losses must fall.  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -47,6 +53,15 @@ RULE_RAYS = 8192          # float-rule rays per kernel check
 SWEEP_SCENE = dict(n_spheres=25, subdiv=3)  # 32,002 triangles, no tables
 T_REL, UV_ABS = 1e-5, 1e-4  # kernel vs plain: |dt|/max(1,|t|), |du|, |dv|
 MEAN_REL = 0.02           # kernel render vs plain render, image mean
+FWDBWD_LANES = 1 << 19    # lanes of the gradient phase (`phase_fwdbwd`'s)
+GRAD_REL = 1e-4           # its gradient, kernels vs plain traversal
+TRAIN_STEPS, TRAIN_LR = 5, 0.5
+# the path technique's clamp of each contribution in the `train` phase: a
+# few unclamped firefly lanes (up to 6,064 in a 512x512 render of the
+# materials scene on an H100, the JAX package's render the same there:
+# scripts/torch_fireflies.py, tests/test_torch_materials_fireflies.py) rule
+# a squared-error loss and its gradient
+TRAIN_CLAMP = 10.0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 # float32 operations per test, counted from the kernels' sources
@@ -700,11 +715,15 @@ def reset_counts(fns):
 
 
 # the kernels each main path must launch, once each in every wave iteration
+# (`fwdbwd`, `train`: once each in every bounce of the differentiable render)
 PATH_KERNELS = {
     "demo": ("bw_closest", "bw_any"),
     "big": ("packet_bvh_closest", "packet_bvh_any"),
     "instanced": ("tlas_closest", "tlas_any", "bw_closest", "bw_any"),
     "sweep": ("mt_closest", "mt_any"),
+    "materials": ("bw_closest", "bw_any"),
+    "fwdbwd": ("bw_closest", "bw_any"),
+    "train": ("bw_closest", "bw_any"),
 }
 
 
@@ -774,6 +793,155 @@ def render_mean(rt, spi):
     return float(img.mean())
 
 
+def lanes_over_film(n, film, dev):
+    """`n` lanes over a film x film image, row by row and around again:
+    x = idx % film, y = (idx // film) % film."""
+    idx = torch.arange(n, device=dev)
+    return idx % film, (idx // film) % film
+
+
+def grad_of_summed_render(rt, x, y):
+    """The differentiable render (detached) and d (its sum * 1e-6) /
+    d mat_colors: the reference's `phase_fwdbwd` loss, with sample,
+    iteration, frame and seed 0."""
+    from ignis_tpu_torch.render.integrator import trace_wave
+    tables = dict(rt.tables)
+    mc = tables["mat_colors"].detach().clone().requires_grad_(True)
+    tables["mat_colors"] = mc
+    color = trace_wave(rt.scene, tables, x, y, 0, 0, 0, 0,
+                       differentiable=True)
+    (color.sum() * 1e-6).backward()
+    return color.detach(), mc.grad
+
+
+def same_bits(path, got, want):
+    """Fails unless the per-lane renders `got` (kernels) and `want` (plain
+    traversal) hold the same float32 bits on every lane."""
+    diff = (got.view(torch.int32) != want.view(torch.int32)).any(dim=-1)
+    if diff.any():
+        fail(f"{path}: the render with the kernels differs from the plain "
+             f"traversal's on {int(diff.sum())} of {got.shape[0]} lanes")
+    return int(got.shape[0])
+
+
+def bw_plain(bw):
+    """The plain Baldwin-Weber traversal patched into the integrator."""
+    from ignis_tpu_torch.render import integrator
+    return mock.patch.multiple(integrator, bw_closest=bw.bw_closest_plain,
+                               bw_any=bw.bw_any_plain)
+
+
+def fwdbwd(rt, n, wrappers, bw, reps=2):
+    """The gradient phase on `rt` at `n` lanes: launches per call, seconds
+    per call after a warm-up (host clock closed by a synchronise), peak
+    device memory, and the per-lane render (bit for bit) and the gradient
+    held to those taken with the plain traversal patched in: every launch
+    of the phase is `n` rays wide."""
+    x, y = lanes_over_film(n, rt.width, rt.tables["mat_colors"].device)
+    depth = min(rt.scene.technique.max_depth, 64)
+    reset_counts(wrappers)
+    color, g = grad_of_summed_render(rt, x, y)       # also the warm-up
+    torch.cuda.synchronize()
+    per_call = {f.__name__: f.launches for f in wrappers}
+    if any(per_call[k] != depth for k in PATH_KERNELS["fwdbwd"]):
+        fail(f"fwdbwd: launches {per_call} per call, not one of each of "
+             f"{PATH_KERNELS['fwdbwd']} in each of {depth} bounces")
+    gh = g.cpu().numpy()
+    if not np.isfinite(gh).all() or not (gh != 0).any():
+        fail("fwdbwd: the gradient is not finite or is all zero")
+    torch.cuda.reset_peak_memory_stats()
+    ta = time.perf_counter()
+    for _ in range(reps):
+        grad_of_summed_render(rt, x, y)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - ta) / reps
+    peak = torch.cuda.max_memory_allocated()
+    launches = {f.__name__: f.launches for f in wrappers}
+    with bw_plain(bw):
+        color_plain, gp = grad_of_summed_render(rt, x, y)
+    lanes_equal = same_bits("fwdbwd", color, color_plain)
+    gp = gp.cpu().numpy()
+    nz = (gh != 0) | (gp != 0)
+    rel = float(np.max(np.abs(gh[nz] - gp[nz])
+                       / np.maximum(np.abs(gp[nz]), 1e-30)))
+    if rel > GRAD_REL:
+        fail(f"fwdbwd: kernel gradient vs plain-traversal gradient: max "
+             f"relative difference {rel} > {GRAD_REL}")
+    return dict(lanes=n, bounces=depth, seconds_per_call=round(dt, 4),
+                mrays_per_s=round(n / dt / 1e6, 4),
+                peak_memory_gb=round(peak / 1e9, 3), grad_finite=True,
+                grad_nonzero=int((gh != 0).sum()), grad_max_rel_vs_plain=rel,
+                render_lanes_bit_equal_to_plain=lanes_equal,
+                launches_per_call=per_call, launches=launches)
+
+
+def perturbed_tables(rt):
+    """The `train` phase's start: `rt`'s tables with the colors x 0.7 and
+    the roughness slots (0 and 4) of its microfacet materials + 0.1.
+    Returns (tables, the perturbed materials)."""
+    from ignis_tpu_torch.scene.compile import (
+        BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC, BSDF_ROUGH_PLASTIC,
+    )
+    tables = dict(rt.tables)
+    tables["mat_colors"] = rt.tables["mat_colors"] * 0.7
+    rough = [i for i, t in enumerate(rt.scene.bsdf_types) if t in (
+        BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC, BSDF_ROUGH_PLASTIC)]
+    sc = rt.tables["mat_scalars"].clone()
+    sc[rough, 0] += 0.1
+    sc[rough, 4] += 0.1
+    tables["mat_scalars"] = sc
+    return tables, rough
+
+
+def train(rt, steps, lr, wrappers, bw):
+    """`steps` SGD steps of `parallel.sharding.train_step` from perturbed
+    parameters toward the render of the true ones, one lane a pixel, the
+    same seed every step.  The target and the first step's render are held
+    bit for bit to the renders with the plain traversal: every launch of
+    the phase is one lane a pixel wide."""
+    from ignis_tpu_torch.parallel.sharding import train_step
+    from ignis_tpu_torch.render.integrator import trace_wave
+    dev = rt.tables["mat_colors"].device
+    x, y = lanes_over_film(rt.width * rt.height, rt.width, dev)
+    keys = ("mat_colors", "mat_scalars", "light_data")
+    tables, rough = perturbed_tables(rt)
+
+    def render(t):
+        return trace_wave(rt.scene, t, x, y, 0, 0, 0, 0,
+                          differentiable=True).detach()
+    target, start = render(rt.tables), render(tables)
+    with bw_plain(bw):
+        same_bits("train target", target, render(rt.tables))
+        lanes_equal = same_bits("train start", start, render(tables))
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(steps):
+        ta = time.perf_counter()
+        loss, tables = train_step(rt.scene, tables, x, y, 0, 0, 0, 0, target,
+                                  param_keys=keys, lr=lr)
+        losses.append(float(loss))                  # a synchronise
+        secs.append(round(time.perf_counter() - ta, 4))
+    launches = {f.__name__: f.launches for f in wrappers}
+    depth = min(rt.scene.technique.max_depth, 64)
+    if any(launches[k] != depth * steps for k in PATH_KERNELS["train"]):
+        fail(f"train: launches {launches} over {steps} steps of {depth} "
+             "bounces")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} are not finite or do not fall")
+    first = float(torch.mean((start - target) ** 2))
+    if abs(losses[0] - first) > 1e-6 * abs(first):
+        fail(f"train: the first loss {losses[0]} is not that of the start "
+             f"render held to the plain traversal ({first})")
+    return dict(steps=steps, lanes=int(x.shape[0]), lr=lr,
+                param_keys=list(keys), rough_materials=rough, losses=losses,
+                render_lanes_bit_equal_to_plain=lanes_equal,
+                step_seconds=secs,
+                peak_memory_gb=round(torch.cuda.max_memory_allocated() / 1e9,
+                                     3),
+                launches=launches)
+
+
 def sweep_runtime(film, dev):
     """The sweep scene's compiled tables as they are, plus the shading rows:
     neither Baldwin-Weber nor packet rows, so the whole-soup kernel runs."""
@@ -803,7 +971,9 @@ def main():
     from ignis_tpu_torch.ops import packet_bvh as pb
     from ignis_tpu_torch.ops import tlas
     from ignis_tpu_torch.scene.compile import load_and_compile
-    from ignis_tpu_torch.scenes import big_scene, demo_scene, instanced_scene
+    from ignis_tpu_torch.scenes import (
+        big_scene, demo_scene, instanced_scene, materials_scene,
+    )
 
     # ---- 1. device
     t0 = time.perf_counter()
@@ -971,6 +1141,35 @@ def main():
             mt_closest=mt.mt_closest_plain, mt_any=mt.mt_any_plain))
     emit("sweep", t0, **runs["sweep"], **means)
 
+    # ---- 8. materials: the rough, plastic, phong, principled and two-lobe
+    # BSDFs and the constant normal modifier through Runtime.step (kernel 1)
+    t0 = time.perf_counter()
+    rt_mat = Runtime(materials_scene(), width=FILM, height=FILM, device=dev)
+    runs["materials"] = timed_steps("materials", rt_mat, 2, 1, wrappers)
+    means = kernel_and_plain_means("materials", rt_mat, 1, dict(
+        bw_closest=bw.bw_closest_plain, bw_any=bw.bw_any_plain))
+    emit("materials", t0, **runs["materials"], **means,
+         tris=int(rt_mat.tables["tri_v0"].shape[0]),
+         bsdf_types=rt_mat.scene.bsdf_types,
+         bsdf_types_b=rt_mat.scene.bsdf_types_b,
+         nmod_kinds=rt_mat.scene.nmod_kinds)
+
+    # ---- 9. fwdbwd: the gradient of the summed differentiable render of the
+    # demo scene with respect to mat_colors (the reference's phase_fwdbwd)
+    t0 = time.perf_counter()
+    runs["fwdbwd"] = fwdbwd(rt_demo, FWDBWD_LANES, wrappers, bw)
+    emit("fwdbwd", t0, **runs["fwdbwd"])
+
+    # ---- 10. train: SGD steps of parallel.sharding.train_step on the
+    # materials scene, its contributions clamped
+    t0 = time.perf_counter()
+    scene = materials_scene()
+    scene["technique"] = dict(scene["technique"], clamp=TRAIN_CLAMP)
+    rt_train = Runtime(scene, width=FILM, height=FILM, device=dev)
+    runs["train"] = train(rt_train, TRAIN_STEPS, TRAIN_LR, wrappers, bw)
+    emit("train", t0, **runs["train"], clamp=TRAIN_CLAMP,
+         film=[rt_train.width, rt_train.height])
+
     # ---- the kernels line: launches are those of the main paths' runs, in
     # all and for each path that has to launch the kernel
     by_path = {}
@@ -1007,6 +1206,9 @@ def main():
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path[name].values()),
             launches_by_path=by_path[name],
+            launches_per_fwdbwd_call=runs["fwdbwd"]["launches_per_call"].get(
+                name, 0),
+            backward="none: traversal detached",
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,

@@ -1,9 +1,21 @@
-"""Surface preparation and the BSDF entry points the path technique calls.
+"""Two-lobe materials, the constant normal modifier, and the BSDF entry points
+the path technique calls.  Counterpart of ignis_tpu/bsdf/layered.py.
 
-Counterpart of ignis_tpu/bsdf/layered.py for materials with a single lobe and
-no normal modifier: `prepare_surface`, `bsdf_eval`, `bsdf_pdf`, `bsdf_sample`
-pass straight to the union.  Two-lobe wrappers (mix/add/mask/cutoff) and
-normal modifiers (bumpmap/normalmap/transform) raise.
+The scene compiler flattens wrapper chains (mix/blend/add/mask/cutoff,
+normal modifiers, twosided) into at most two leaf lobes per material plus one
+normal modifier; this module applies them with masked per-lane selects, so
+scenes without wrappers take the single-lobe path.
+
+  * eval  = lerp(evalA, evalB, k); `add` sums the two.
+  * pdf   = lerp(pdfA,  pdfB,  k); `add` takes lobe A's unless it is
+    specular.
+  * sample: u < 1-k -> lobe A else B, then the one-sample MIS combine with
+    the other lobe unless that one is specular; `add` samples lobe A only.
+  * is_specular = specA & specB.
+Normal modifier kind 3 (`transform` with a constant normal and optional
+tangent) rotates the shading frame by the minimal rotation taking the old
+normal to the new one.  Normal maps, bump maps, PExpr normals (kinds 1, 2,
+4) and textured mix weights wait for the texture port and raise.
 """
 
 from __future__ import annotations
@@ -11,6 +23,13 @@ from __future__ import annotations
 import torch
 
 from ignis_tpu_torch.bsdf import union
+from ignis_tpu_torch.core import rng
+from ignis_tpu_torch.core.dgather import gather_rows
+from ignis_tpu_torch.core.vec import (
+    FLT_EPS, clip, cross, dot, maximum, normalize, safe_div,
+)
+
+_NMOD_PORTED = {0, 3}
 
 
 def scene_has_lobes(scene) -> bool:
@@ -22,38 +41,182 @@ def scene_has_nmod(scene) -> bool:
 
 
 def _check(scene):
-    if scene_has_nmod(scene):
+    # a textured mix weight needs textures, which `union.material_params`
+    # refuses
+    kinds = set(getattr(scene, "nmod_kinds", [])) - _NMOD_PORTED
+    if kinds:
         raise NotImplementedError(
-            "normal modifiers are not ported to ignis_tpu_torch yet")
-    if scene_has_lobes(scene):
-        raise NotImplementedError(
-            "two-lobe BSDFs are not ported to ignis_tpu_torch yet")
+            f"normal modifier kinds {sorted(kinds)} (normal map, bump map, "
+            "PExpr normal) are not ported to ignis_tpu_torch yet")
 
 
+# ------------------------------------------------------------ normal mods
+def _align_rotation_apply(a, b, x):
+    """Rotate x by the minimal rotation taking unit vector a to unit b."""
+    v = cross(a, b)
+    c = dot(a, b)
+    # Rodrigues; the antiparallel case falls back to about the identity
+    # (apply_normal_mod keeps the new normal in the view's hemisphere)
+    f = safe_div(1.0, maximum(1.0 + c, 1e-6))
+    return (x * c[..., None] + cross(v, x)
+            + v * (dot(v, x) * f)[..., None])
+
+
+def apply_normal_mod(scene, tables, surf, d):
+    """Perturb the shading frame by the material's normal modifier."""
+    if not scene_has_nmod(scene):
+        return surf
+    mat_id = surf["mat_id"].long()
+    kind = tables["mat_nmod_kind"][mat_id]          # (N,)
+    f = tables["mat_nmod_f"][mat_id]                # (N, 8)
+    n, t, b = surf["n"], surf["t"], surf["b"]
+
+    # the normal and tangent set (kind 3)
+    is3 = (kind == 3)[..., None]
+    n_new = torch.where(is3, normalize(f[:, 1:4]), n)
+    # reject perturbations that put the view below the shading horizon
+    ok = dot(-d, n_new) > FLT_EPS
+    n_new = torch.where(ok[..., None], n_new, n)
+
+    t_new = normalize(_align_rotation_apply(n, n_new, t))
+    b_new = normalize(_align_rotation_apply(n, n_new, b))
+    sel = is3 & (f[:, 7] > 0.5)[..., None]
+    tan = normalize(f[:, 4:7])
+    surf["n"] = n_new
+    surf["t"] = torch.where(sel, tan, t_new)
+    surf["b"] = torch.where(sel, normalize(cross(tan, n_new)), b_new)
+    return surf
+
+
+# ---------------------------------------------------------------- prepare
 def prepare_surface(scene, tables, surf, d, org=None):
-    """Resolve per-lane material parameters.
+    """Normal modifier, lobe parameters and per-lane mix weights.
 
-    Returns (mat_type, specular_mask); adds `colors` and `scalars` to surf
-    in place."""
+    Returns (mat_type, specular_mask); adds colors and scalars to surf in
+    place, and for two-lobe scenes colors_b, scalars_b, mix_k, mix_kind and
+    mat_type_b."""
     _check(scene)
-    types = torch.as_tensor(scene.bsdf_types, dtype=torch.int32,
-                            device=d.device)
-    mat_type = types[surf["mat_id"].long()]
+    apply_normal_mod(scene, tables, surf, d)
+    dev = d.device
+    mat_id = surf["mat_id"].long()
+    types = torch.as_tensor(scene.bsdf_types, dtype=torch.int32, device=dev)
+    mat_type = types[mat_id]
     surf["colors"], surf["scalars"] = union.material_params(
         scene, tables, surf)
     spec = union.bsdf_specular_mask(scene.bsdf_types, mat_type)
-    return mat_type, spec
+    if not scene_has_lobes(scene):
+        return mat_type, spec
+
+    types_b = torch.as_tensor([max(t, 0) for t in scene.bsdf_types_b],
+                              dtype=torch.int32, device=dev)
+    mat_type_b = types_b[mat_id]
+    surf["mat_type_b"] = mat_type_b
+    surf["mix_kind"] = tables["mat_mix_kind"][mat_id]
+    surf["colors_b"] = gather_rows(tables["mat_colors_b"], mat_id)
+    surf["scalars_b"] = gather_rows(tables["mat_scalars_b"], mat_id)
+
+    # mix weight k (the weight of lobe B), then the cutoff
+    wf = tables["mat_wrap_f"][mat_id]
+    k = wf[:, 0]
+    cut = wf[:, 1]
+    k = torch.where(cut >= 0.0, torch.where(k < cut, torch.zeros_like(k),
+                                            torch.ones_like(k)), k)
+    surf["mix_k"] = clip(k, 0.0, 1.0)
+
+    spec_b = union.bsdf_specular_mask(union.lobe_types(scene, "b"),
+                                      mat_type_b)
+    return mat_type, torch.where(surf["mix_kind"] > 0, spec & spec_b, spec)
 
 
+def _two_lobe(scene, surf):
+    return scene_has_lobes(scene) and "mat_type_b" in surf
+
+
+# ------------------------------------------------------------- eval / pdf
 def bsdf_eval(scene, tables, mat_type, surf, in_dir, out_dir):
-    return union.bsdf_eval(scene, tables, mat_type, surf, in_dir, out_dir)
+    ea = union.bsdf_eval(scene, tables, mat_type, surf, in_dir, out_dir)
+    if not _two_lobe(scene, surf):
+        return ea
+    eb = union.bsdf_eval(scene, tables, surf["mat_type_b"], surf, in_dir,
+                         out_dir, lobe="b")
+    k = surf["mix_k"][..., None]
+    kind = surf["mix_kind"]
+    mixed = torch.where((kind == 2)[..., None], ea + eb,
+                        ea * (1.0 - k) + eb * k)
+    return torch.where((kind > 0)[..., None], mixed, ea)
 
 
 def bsdf_pdf(scene, tables, mat_type, surf, in_dir, out_dir):
-    return union.bsdf_pdf(scene, tables, mat_type, surf, in_dir, out_dir)
+    pa = union.bsdf_pdf(scene, tables, mat_type, surf, in_dir, out_dir)
+    if not _two_lobe(scene, surf):
+        return pa
+    pb = union.bsdf_pdf(scene, tables, surf["mat_type_b"], surf, in_dir,
+                        out_dir, lobe="b")
+    k = surf["mix_k"]
+    kind = surf["mix_kind"]
+    spec_a = union.bsdf_specular_mask(scene.bsdf_types, mat_type)
+    # add: the first lobe's pdf unless it is specular
+    add_pdf = torch.where(spec_a, pb, pa)
+    mixed = torch.where(kind == 2, add_pdf, pa * (1.0 - k) + pb * k)
+    return torch.where(kind > 0, mixed, pa)
 
 
+# ----------------------------------------------------------------- sample
 def bsdf_sample(scene, tables, mat_type, surf, seed, counter, out_dir,
                 active=None, adjoint=False):
-    return union.bsdf_sample(scene, tables, mat_type, surf, seed, counter,
-                             out_dir, active=active, adjoint=adjoint)
+    if not _two_lobe(scene, surf):
+        return union.bsdf_sample(scene, tables, mat_type, surf, seed,
+                                 counter, out_dir, active=active,
+                                 adjoint=adjoint)
+    if active is None:
+        active = torch.ones_like(mat_type, dtype=torch.bool)
+    kind = surf["mix_kind"]
+    k = surf["mix_k"]
+    is_mix = (kind == 1) & active
+
+    # As in the reference package, a lane whose chosen lobe gives an invalid
+    # sample dies rather than retrying with the other lobe.
+    # The lobe pick draws from mix lanes only.
+    u_pick, c_pick = rng.next_f32(seed, counter)
+    c0 = torch.where(is_mix, c_pick, counter)
+    pick_b = is_mix & (u_pick >= 1.0 - k)
+
+    mat_type_b = surf["mat_type_b"]
+    ra = union.bsdf_sample(scene, tables, mat_type, surf, seed, c0, out_dir,
+                           active=active & ~pick_b, adjoint=adjoint)
+    rb = union.bsdf_sample(scene, tables, mat_type_b, surf, seed, c0,
+                           out_dir, active=pick_b, adjoint=adjoint, lobe="b")
+    pb_c = pick_b[..., None]
+    in_dir = torch.where(pb_c, rb[0], ra[0])
+    pdf = torch.where(pick_b, rb[1], ra[1])
+    weight = torch.where(pb_c, rb[2], ra[2])
+    eta = torch.where(pick_b, rb[3], ra[3])
+    valid = torch.where(pick_b, rb[4], ra[4])
+    new_counter = torch.where(pick_b, rb[5], ra[5])
+
+    # one-sample MIS combine against the unchosen lobe, skipped when that
+    # lobe is specular
+    spec_a = union.bsdf_specular_mask(scene.bsdf_types, mat_type)
+    spec_b = union.bsdf_specular_mask(union.lobe_types(scene, "b"),
+                                      mat_type_b)
+    other_spec = torch.where(pick_b, spec_a, spec_b)
+    do_mis = is_mix & valid & ~other_spec
+    ea = union.bsdf_eval(scene, tables, mat_type, surf, in_dir, out_dir)
+    eb = union.bsdf_eval(scene, tables, mat_type_b, surf, in_dir, out_dir,
+                         lobe="b")
+    pa = union.bsdf_pdf(scene, tables, mat_type, surf, in_dir, out_dir)
+    pb = union.bsdf_pdf(scene, tables, mat_type_b, surf, in_dir, out_dir,
+                        lobe="b")
+    # the chosen lobe's sampled pdf and eval stand for its own
+    pa_m = torch.where(pick_b, pa, pdf)
+    pb_m = torch.where(pick_b, pdf, pb)
+    chosen = weight * pdf[..., None]
+    ea_m = torch.where(pb_c, ea, chosen)
+    eb_m = torch.where(pb_c, chosen, eb)
+    p_mix = pa_m * (1.0 - k) + pb_m * k
+    c_mix = ea_m * (1.0 - k)[..., None] + eb_m * k[..., None]
+    w_mix = c_mix * safe_div(1.0, p_mix)[..., None]
+    ok = do_mis & (p_mix > 0.0)
+    pdf = torch.where(ok, p_mix, pdf)
+    weight = torch.where(ok[..., None], w_mix, weight)
+    return in_dir, pdf, weight, eta, valid, new_counter

@@ -1,10 +1,13 @@
 """Batched BSDF union: one switched evaluation over material types.
 
-Counterpart of ignis_tpu/bsdf/union.py for the `diffuse`, `dielectric` (solid
-and thin) and `conductor` (incl. `mirror`, which compiles to a conductor with
-eta = 0, k = 1) types.  The small union of BSDF types present in the scene is
-evaluated for all lanes with masked selects; only the types that appear in the
-compiled scene (static `bsdf_types` list) are computed.
+Counterpart of ignis_tpu/bsdf/union.py for the `diffuse`, `dielectric`
+(smooth, thin and rough), `conductor` (smooth and rough, incl. `mirror`,
+which compiles to a conductor with eta = 0, k = 1), `phong`, `plastic`
+(smooth and rough), `principled` and `passthrough` types.  The small union of
+BSDF types present in the scene is evaluated for all lanes with masked
+selects; only the types that appear in the compiled scene (static
+`bsdf_types` list) are computed.  `lobe="b"` evaluates a two-lobe material's
+second lobe (`bsdf_types_b`, `mat_colors_b`, `mat_scalars_b`).
 
 Conventions:
   * eval(in_dir, out_dir) returns reflectance WITH the cosine term applied.
@@ -12,20 +15,29 @@ Conventions:
     applied.
   * out_dir points AWAY from the surface (toward the previous vertex);
     in_dir is the sampled/next direction.
+
+Everything is differentiable tensor code: no in-place writes, and every
+division that an unselected branch may take by zero goes through `safe_div`
+where the reference uses it, so that no `0 * inf` reaches a gradient.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ignis_tpu_torch.bsdf import microfacet as mf
 from ignis_tpu_torch.core import rng
 from ignis_tpu_torch.core.dgather import gather_rows
 from ignis_tpu_torch.core.vec import (
-    FLT_EPS, INV_PI, absolute_cos, dot, mulf, normalize, positive_cos,
-    reflect, refract, safe_div, to_world,
+    FLT_EPS, INV_PI, absolute_cos, clip, device_scalar, dot, ipow, maximum,
+    mulf, normalize, orthonormal_basis, positive_cos, reflect, refract,
+    safe_div, safe_sqrt, to_world,
 )
 from ignis_tpu_torch.core.warp import (
-    cosine_hemisphere_pdf, sample_cosine_hemisphere,
+    cosine_hemisphere_pdf, cosine_power_hemisphere_pdf,
+    sample_cosine_hemisphere, sample_cosine_power_hemisphere,
 )
 from ignis_tpu_torch.scene.compile import (
     BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_DJMEASURED,
@@ -54,7 +66,9 @@ _SAMPLE_DRAWS = {
 }
 
 _SPECULAR = {BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PASSTHROUGH}
-_PORTED = {BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR}
+_PORTED = {BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PHONG,
+           BSDF_PASSTHROUGH, BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC,
+           BSDF_PLASTIC, BSDF_ROUGH_PLASTIC, BSDF_PRINCIPLED}
 
 
 def _check_ported(bsdf_types):
@@ -105,7 +119,7 @@ def _diffuse_eval(colors, scalars, surf, in_dir, out_dir):
     p2 = absolute_cos(out_dir, n)
     s = -p1 * p2 + positive_cos(out_dir, in_dir)
     t = torch.where(s <= FLT_EPS, torch.ones_like(s),
-                    torch.clamp_min(torch.maximum(p1, p2), FLT_EPS))
+                    maximum(maximum(p1, p2), FLT_EPS))
     A = 1.0 - 0.5 * a2 / (a2 + 0.33)
     B = 0.45 * a2 / (a2 + 0.09)
     C = 0.17 * a2 / (a2 + 0.13)
@@ -141,12 +155,12 @@ def _fresnel(eta, cos_i):
     eta2 = torch.where(neg, 1.0 / eta, eta)
     cos2_t = 1.0 - (1.0 - cos_i * cos_i) * eta2 * eta2
     total = cos2_t <= 0.0
-    cos_t = torch.sqrt(torch.clamp_min(cos2_t, 0.0))
+    cos_t = safe_sqrt(cos2_t)
     cos_t_s = torch.where(neg, -cos_t, cos_t)
     aci = torch.abs(cos_i)
     r_s = safe_div(eta2 * aci - cos_t, eta2 * aci + cos_t)
     r_p = safe_div(aci - eta2 * cos_t, aci + eta2 * cos_t)
-    factor = torch.clamp((r_s * r_s + r_p * r_p) * 0.5, 0.0, 1.0)
+    factor = clip((r_s * r_s + r_p * r_p) * 0.5, 0.0, 1.0)
     factor = torch.where(total, torch.ones_like(factor), factor)
     return cos_t_s, factor, total
 
@@ -204,7 +218,7 @@ def _conductor_factor(n, k, cos_i):
     d2 = 2.0 * n * cos_i
     r_s = safe_div(d1 - d2, d1 + d2)
     r_p = safe_div(f - d2 + cos_i * cos_i, f + d2 + cos_i * cos_i)
-    return torch.clamp((r_s * r_s + r_p * r_p) * 0.5, 0.0, 1.0)
+    return clip((r_s * r_s + r_p * r_p) * 0.5, 0.0, 1.0)
 
 
 def _conductor_sample(colors, scalars, surf, out_dir):
@@ -222,9 +236,308 @@ def _conductor_sample(colors, scalars, surf, out_dir):
             torch.ones_like(pdf, dtype=torch.bool))
 
 
+# ------------------------------------------------------------------- phong
+
+def _phong_eval(colors, scalars, surf, in_dir, out_dir):
+    ks = colors[:, 0]
+    ex = scalars[:, 0]
+    n = surf["n"]
+    cos_i = absolute_cos(in_dir, n)
+    cos_r = positive_cos(reflect(out_dir, n), in_dir)
+    f = (torch.pow(cos_r, ex) * (ex + 2.0)
+         * (1.0 / (2.0 * 3.14159265358979)) * cos_i)
+    return mulf(ks, f)
+
+
+def _phong_pdf(colors, scalars, surf, in_dir, out_dir):
+    ex = scalars[:, 0]
+    cos_r = positive_cos(reflect(out_dir, surf["n"]), in_dir)
+    return cosine_power_hemisphere_pdf(cos_r, ex)
+
+
+def _phong_sample(colors, scalars, surf, u1, u2, out_dir):
+    ex = scalars[:, 0]
+    r = normalize(reflect(out_dir, surf["n"]))
+    local, pdf = sample_cosine_power_hemisphere(ex, u1, u2)
+    t, b = orthonormal_basis(r)
+    gdir = to_world(local, t, b, r)
+    ev = _phong_eval(colors, scalars, surf, gdir, out_dir)
+    weight = ev * safe_div(1.0, pdf)[..., None]
+    valid = (pdf > FLT_EPS) & (dot(gdir, surf["n"]) > 0)
+    return gdir, pdf, weight, torch.ones_like(pdf), valid
+
+
+# ------------------------------------------------------- rough microfacet
+
+def _mf_params(scalars):
+    return scalars[:, 0], scalars[:, 4]  # alpha_u, alpha_v
+
+
+def _flip_to(v, ref):
+    """v, or -v where it points away from `ref`."""
+    return torch.where(torch.signbit(dot(v, ref))[..., None], -v, v)
+
+
+def _rough_conductor_eval(colors, scalars, surf, in_dir, out_dir):
+    """Rough conductor (kd = 0)."""
+    ks, eta, kap = colors[:, 0], colors[:, 1], colors[:, 2]
+    au, av = _mf_params(scalars)
+    t, b, n = surf["t"], surf["b"], surf["n"]
+    cos_o = absolute_cos(out_dir, n)
+    cos_i = absolute_cos(in_dir, n)
+    H = mf.halfway(in_dir, out_dir)
+    D = mf.ndf_ggx(t, b, n, H, au, av)
+    G = (mf.g1_smith(t, b, n, in_dir, au, av)
+         * mf.g1_smith(t, b, n, out_dir, au, av))
+    cos_h = absolute_cos(out_dir, H)
+    F = torch.stack([_conductor_factor(eta[:, c], kap[:, c], cos_h)
+                     for c in range(3)], dim=-1)
+    val = ks * F * safe_div(D * G, 4.0 * cos_o)[..., None]
+    bad = (cos_o <= FLT_EPS) | (cos_i <= FLT_EPS)
+    return torch.where(bad[..., None], torch.zeros_like(val), val)
+
+
+def _rough_conductor_pdf(colors, scalars, surf, in_dir, out_dir):
+    au, av = _mf_params(scalars)
+    t, b, n = surf["t"], surf["b"], surf["n"]
+    H = mf.halfway(in_dir, out_dir)
+    cos_h_o = absolute_cos(out_dir, H)
+    return (mf.pdf_vndf_ggx(t, b, n, out_dir, H, au, av)
+            * mf.reflective_jacobian(cos_h_o))
+
+
+def _rough_conductor_sample(colors, scalars, surf, u0, u1, out_dir):
+    au, av = _mf_params(scalars)
+    t, b, n = surf["t"], surf["b"], surf["n"]
+    cos_o = absolute_cos(out_dir, n)
+    H = _flip_to(mf.sample_vndf_ggx(u0, u1, t, b, n, out_dir, au, av),
+                 out_dir)
+    in_dir = reflect(out_dir, H)
+    cos_i = absolute_cos(in_dir, n)
+    cos_h_o = absolute_cos(out_dir, H)
+    spdf = mf.pdf_vndf_ggx(t, b, n, out_dir, H, au, av)
+    pdf = spdf * safe_div(1.0, 4.0 * cos_h_o)
+    color = _rough_conductor_eval(colors, scalars, surf, in_dir, out_dir)
+    weight = color * safe_div(1.0, pdf)[..., None]
+    valid = (cos_o > FLT_EPS) & (cos_i > FLT_EPS) & (pdf > FLT_EPS)
+    return in_dir, pdf, weight, torch.ones_like(pdf), valid
+
+
+def _rough_dielectric_terms(colors, scalars, surf, in_dir, out_dir):
+    """Pieces shared by the rough dielectric's eval and pdf."""
+    n1, n2 = scalars[:, 1], scalars[:, 2]
+    au, av = _mf_params(scalars)
+    t, b, n = surf["t"], surf["b"], surf["n"]
+    eta = torch.where(surf["is_entering"], n1 / n2, n2 / n1)
+    cos_i = dot(n, in_dir)
+    cos_o = dot(n, out_dir)
+    is_trans = torch.signbit(cos_i * cos_o)
+    H = torch.where(is_trans[..., None],
+                    mf.halfway_refractive(in_dir, out_dir, eta),
+                    mf.halfway(in_dir, out_dir))
+    cos_h_i = dot(H, in_dir)
+    cos_h_o = dot(H, out_dir)
+    G = (mf.g1_smith(t, b, n, in_dir, au, av)
+         * mf.g1_smith(t, b, n, out_dir, au, av))
+    bad = ((torch.abs(cos_i * cos_o) <= 1e-5)
+           | (torch.abs(cos_h_i * cos_h_o) <= 1e-5))
+    return dict(ks=colors[:, 0], kt=colors[:, 1], eta=eta, cos_i=cos_i,
+                cos_o=cos_o, is_trans=is_trans, H=H, cos_h_i=cos_h_i,
+                cos_h_o=cos_h_o,
+                fterm=_fresnel_dielectric(eta, torch.abs(cos_h_o)),
+                D=mf.ndf_ggx(t, b, n, H, au, av), G=G, bad=bad, t=t, b=b,
+                n=n, au=au, av=av)
+
+
+def _rough_dielectric_eval(colors, scalars, surf, in_dir, out_dir):
+    q = _rough_dielectric_terms(colors, scalars, surf, in_dir, out_dir)
+    refl = q["ks"] * (q["fterm"] * q["D"] * q["G"] * torch.abs(
+        mf.reflective_jacobian(q["cos_o"])))[..., None]
+    jac = mf.refractive_jacobian(q["eta"], q["cos_h_i"], q["cos_h_o"])
+    norm = torch.abs(safe_div(q["cos_h_o"] * jac, q["cos_o"]))
+    trans = q["kt"] * ((1.0 - q["fterm"]) * q["D"] * q["G"] * norm)[..., None]
+    val = torch.where(q["is_trans"][..., None], trans, refl)
+    return torch.where(q["bad"][..., None], torch.zeros_like(val), val)
+
+
+def _rough_dielectric_pdf(colors, scalars, surf, in_dir, out_dir):
+    q = _rough_dielectric_terms(colors, scalars, surf, in_dir, out_dir)
+    mpdf = mf.pdf_vndf_ggx(q["t"], q["b"], q["n"], out_dir, q["H"],
+                           q["au"], q["av"])
+    p_refl = q["fterm"] * mpdf * torch.abs(
+        mf.reflective_jacobian(q["cos_h_o"]))
+    p_trans = ((1.0 - q["fterm"]) * mpdf
+               * torch.abs(mf.refractive_jacobian(q["eta"], q["cos_h_i"],
+                                                  q["cos_h_o"])))
+    val = torch.where(q["is_trans"], p_trans, p_refl)
+    return torch.where(q["bad"] | (mpdf <= 1e-5), torch.zeros_like(val), val)
+
+
+def _rough_dielectric_sample(colors, scalars, surf, u0, u1, u2, out_dir,
+                             adjoint=False):
+    """VNDF half-vector (u0, u1), then the Fresnel pick (u2)."""
+    n1, n2 = scalars[:, 1], scalars[:, 2]
+    au, av = _mf_params(scalars)
+    t, b, n = surf["t"], surf["b"], surf["n"]
+    eta = torch.where(surf["is_entering"], n1 / n2, n2 / n1)
+    cos_o = dot(n, out_dir)
+
+    H = _flip_to(mf.sample_vndf_ggx(u0, u1, t, b, n, out_dir, au, av),
+                 out_dir)
+    cos_h_o = dot(H, out_dir)
+    spdf = mf.pdf_vndf_ggx(t, b, n, out_dir, H, au, av)
+
+    cos_t, factor, _tot = _fresnel(eta, cos_h_o)
+    refr = u2 > factor
+    d_refr = normalize(refract(out_dir, H, eta, cos_h_o, cos_t))
+    d_refl = normalize(reflect(out_dir, H))
+    in_dir = torch.where(refr[..., None], d_refr, d_refl)
+    jac_t = mf.refractive_jacobian(eta, dot(H, in_dir), cos_h_o)
+    jac_r = mf.reflective_jacobian(cos_h_o)
+    sel_pdf = torch.where(refr, (1.0 - factor) * torch.abs(jac_t),
+                          factor * torch.abs(jac_r))
+    cos_i = dot(n, in_dir)
+    f_pdf = spdf * sel_pdf
+    is_trans = torch.signbit(cos_i * cos_o)
+    one = torch.ones_like(eta)
+    adj = (torch.where(is_trans, 1.0 / (eta * eta), one) if adjoint
+           else one)
+    ev = _rough_dielectric_eval(colors, scalars, surf, in_dir, out_dir)
+    weight = ev * safe_div(adj, f_pdf)[..., None]
+    eta_out = torch.where(is_trans, eta, one)
+    valid = ((torch.abs(cos_o) > 1e-5) & (spdf > 1e-5) & (f_pdf > 0)
+             & (torch.abs(cos_h_o) > 1e-5))
+    return in_dir, f_pdf, weight, eta_out, valid
+
+
+# ------------------------------------------------------------------ plastic
+
+def _fresnel_diffuse_factor(eta):
+    """Two fits by IOR regime."""
+    low = -1.4399 * eta * eta + 0.7099 * eta + 0.6681 + 0.0636 / eta
+    ie = 1.0 / eta
+    hi = (0.919317 - 3.4793 * ie + 6.75335 * ipow(ie, 2)
+          - 7.80989 * ipow(ie, 3) + 4.98554 * ipow(ie, 4)
+          - 1.36881 * ipow(ie, 5))
+    return torch.where(eta < 1.0, low, hi)
+
+
+def _plastic_parts(colors, scalars, surf, out_dir):
+    kd, ks = colors[:, 0], colors[:, 1]
+    eta = scalars[:, 1] / scalars[:, 2]
+    fdr = _fresnel_diffuse_factor(eta)
+    k = _fresnel_dielectric(eta, absolute_cos(out_dir, surf["n"]))
+    return kd, ks, eta, fdr, k
+
+
+def _plastic_scatter(eta, fdr, cos_i):
+    fi = _fresnel_dielectric(eta, cos_i)
+    return (1.0 - fi) * eta * eta / (1.0 - fdr)
+
+
+def _spec_colors(ks):
+    """The rough plastic's specular lobe as a conductor's color slots:
+    ks, eta 0, kappa 1."""
+    return torch.stack([ks, torch.zeros_like(ks), torch.ones_like(ks),
+                        torch.zeros_like(ks)], dim=1)
+
+
+def _plastic_eval(colors, scalars, surf, in_dir, out_dir, rough):
+    kd, ks, eta, fdr, k = _plastic_parts(colors, scalars, surf, out_dir)
+    cos_i = absolute_cos(in_dir, surf["n"])
+    diff = (mulf(kd, cos_i * INV_PI)
+            * _plastic_scatter(eta, fdr, cos_i)[..., None])
+    if rough:
+        spec = _rough_conductor_eval(_spec_colors(ks), scalars, surf, in_dir,
+                                     out_dir)
+    else:
+        spec = torch.zeros_like(diff)
+    return diff * (1.0 - k)[..., None] + spec * k[..., None]
+
+
+def _plastic_pdf(colors, scalars, surf, in_dir, out_dir, rough):
+    k = _plastic_parts(colors, scalars, surf, out_dir)[4]
+    dp = cosine_hemisphere_pdf(positive_cos(in_dir, surf["n"]))
+    if rough:
+        sp = _rough_conductor_pdf(colors, scalars, surf, in_dir, out_dir)
+    else:
+        sp = torch.zeros_like(dp)
+    return dp * (1.0 - k) + sp * k
+
+
+def _plastic_sample(colors, scalars, surf, u0, u1, u2, out_dir, rough):
+    """A two-lobe mix: u0 picks the lobe.  The diffuse lobe takes u1, u2,
+    the rough specular lobe u1, u2 (VNDF), the smooth specular lobe none, so
+    the lanes' draw counts differ and are returned."""
+    kd, ks, eta, fdr, k = _plastic_parts(colors, scalars, surf, out_dir)
+    n = surf["n"]
+    pick_diffuse = u0 < (1.0 - k)
+    kc = k[..., None]
+
+    # --- diffuse lobe (scattering-scaled lambert)
+    local, dpdf = sample_cosine_hemisphere(u1, u2)
+    ddir = to_world(local, surf["t"], surf["b"], n)
+    dcol = kd * _plastic_scatter(eta, fdr, absolute_cos(ddir, n))[..., None]
+
+    def diffuse_at(sdir):
+        cos_i_s = absolute_cos(sdir, n)
+        return (cosine_hemisphere_pdf(positive_cos(sdir, n)),
+                kd * _plastic_scatter(eta, fdr, cos_i_s)[..., None]
+                * (cos_i_s * INV_PI)[..., None])
+
+    if rough:
+        spec = _spec_colors(ks)
+        sdir, spdf, sweight, _e, svalid = _rough_conductor_sample(
+            spec, scalars, surf, u1, u2, out_dir)
+        # diffuse pick: combined with the non-specular second lobe
+        p_d = dpdf * (1.0 - k) + _rough_conductor_pdf(
+            spec, scalars, surf, ddir, out_dir) * k
+        c_d = (dcol * dpdf[..., None] * (1.0 - kc)
+               + _rough_conductor_eval(spec, scalars, surf, ddir, out_dir)
+               * kc)
+        w_d = c_d * safe_div(1.0, p_d)[..., None]
+        # specular pick: combined with the diffuse lobe
+        diff_pdf_s, diff_eval_s = diffuse_at(sdir)
+        p_s = spdf * k + diff_pdf_s * (1.0 - k)
+        c_s = sweight * spdf[..., None] * kc + diff_eval_s * (1.0 - kc)
+        w_s = c_s * safe_div(1.0, p_s)[..., None]
+        in_dir = torch.where(pick_diffuse[..., None], ddir, sdir)
+        pdf = torch.where(pick_diffuse, p_d, dpdf * 0 + p_s)
+        weight = torch.where(pick_diffuse[..., None], w_d, w_s)
+        valid = torch.where(pick_diffuse, dpdf > 0, svalid & (p_s > 0))
+        draws = torch.full(u0.shape, 3, dtype=torch.int64, device=u0.device)
+    else:
+        # smooth specular = a mirror scaled by ks; it is specular, so the
+        # diffuse pick keeps its own sample as it is
+        sdir = reflect(out_dir, n)
+        s_pdf = torch.ones_like(u0)
+        diff_pdf_s, diff_eval_s = diffuse_at(sdir)
+        p_s = s_pdf * k + diff_pdf_s * (1.0 - k)
+        c_s = ks * s_pdf[..., None] * kc + diff_eval_s * (1.0 - kc)
+        w_s = c_s * safe_div(1.0, p_s)[..., None]
+        in_dir = torch.where(pick_diffuse[..., None], ddir, sdir)
+        pdf = torch.where(pick_diffuse, dpdf, p_s)
+        weight = torch.where(pick_diffuse[..., None], dcol, w_s)
+        valid = torch.where(pick_diffuse, dpdf > 0, p_s > 0)
+        draws = torch.where(pick_diffuse, 3, 1).to(torch.int64)
+    return in_dir, pdf, weight, torch.ones_like(pdf), valid, draws
+
+
+def _passthrough_sample(out_dir):
+    one = torch.ones_like(out_dir[:, 0])
+    return (-out_dir, one, torch.ones_like(out_dir), one,
+            torch.ones_like(one, dtype=torch.bool))
+
+
 # ------------------------------------------------------------------- union
 
-def _params(tables, surf):
+def _params(tables, surf, lobe="a"):
+    if lobe == "b":
+        if "colors_b" in surf:
+            return surf["colors_b"], surf["scalars_b"]
+        mat_id = surf["mat_id"]
+        return (gather_rows(tables["mat_colors_b"], mat_id),
+                gather_rows(tables["mat_scalars_b"], mat_id))
     if "colors" in surf:
         return surf["colors"], surf["scalars"]
     mat_id = surf["mat_id"]
@@ -232,38 +545,112 @@ def _params(tables, surf):
             gather_rows(tables["mat_scalars"], mat_id))
 
 
-def bsdf_eval(scene, tables, mat_type, surf, in_dir, out_dir):
-    _check_ported(scene.bsdf_types)
-    colors, scalars = _params(tables, surf)
+# Material parameters a type's branch reads on the lanes of OTHER types: one
+# finite, harmless row.  Every branch runs on every lane and `torch.where`
+# keeps only its own lanes, but the gradient of an unselected value is still
+# multiplied through that branch's derivatives, and a diffuse row read as a
+# plastic one gives eta = 0 / 0: one NaN there makes the whole table's
+# gradient NaN.  The JAX package reads the other types' rows as they are,
+# and its gradients are NaN on scenes that mix such types (ROADMAP.md,
+# queue 3).  Values on a branch's own lanes are untouched.
+_SAFE_COLOR = 0.5
+_SAFE_SCALARS = (1.0, 1.0, 1.5, 0.0, 1.0) + (0.0,) * 11
+
+
+@functools.lru_cache(maxsize=None)
+def _safe_row(width, dtype, device):
+    # made once for each table width, dtype and device: no copy from the
+    # host on the hot path
+    return torch.tensor(_SAFE_SCALARS[:width], dtype=dtype, device=device)
+
+
+def _own(m, colors, scalars):
+    """`colors`, `scalars` on the lanes of `m`, the safe row elsewhere."""
+    safe = _safe_row(scalars.shape[-1], scalars.dtype, scalars.device)
+    return (torch.where(m[:, None, None], colors,
+                        device_scalar(_SAFE_COLOR, colors.device)),
+            torch.where(m[:, None], scalars, safe))
+
+
+def lobe_types(scene, lobe):
+    """The BSDF types of lobe "a" (every material's first) or "b" (the
+    second lobes of two-lobe materials)."""
+    if lobe == "b":
+        return [t for t in getattr(scene, "bsdf_types_b", []) if t >= 0]
+    return list(scene.bsdf_types)
+
+
+def _principled():
+    from ignis_tpu_torch.bsdf import principled
+    return principled
+
+
+def bsdf_eval(scene, tables, mat_type, surf, in_dir, out_dir, lobe="a"):
+    bsdf_types = lobe_types(scene, lobe)
+    _check_ported(bsdf_types)
+    colors, scalars = _params(tables, surf, lobe)
     out = torch.zeros_like(in_dir)
-    if BSDF_DIFFUSE in scene.bsdf_types:
-        v = _diffuse_eval(colors, scalars, surf, in_dir, out_dir)
-        out = torch.where((mat_type == BSDF_DIFFUSE)[..., None], v, out)
-    return out  # specular types eval to black
+    for t in sorted(set(bsdf_types)):
+        if t in _SPECULAR:
+            continue  # specular types eval to black
+        m = mat_type == t
+        ct, sc = _own(m, colors, scalars)
+        if t == BSDF_DIFFUSE:
+            v = _diffuse_eval(ct, sc, surf, in_dir, out_dir)
+        elif t == BSDF_PHONG:
+            v = _phong_eval(ct, sc, surf, in_dir, out_dir)
+        elif t == BSDF_ROUGH_CONDUCTOR:
+            v = _rough_conductor_eval(ct, sc, surf, in_dir, out_dir)
+        elif t == BSDF_ROUGH_DIELECTRIC:
+            v = _rough_dielectric_eval(ct, sc, surf, in_dir, out_dir)
+        elif t in (BSDF_PLASTIC, BSDF_ROUGH_PLASTIC):
+            v = _plastic_eval(ct, sc, surf, in_dir, out_dir,
+                              t == BSDF_ROUGH_PLASTIC)
+        elif t == BSDF_PRINCIPLED:
+            v = _principled().principled_eval(ct, sc, surf, in_dir, out_dir)
+        out = torch.where(m[..., None], v, out)
+    return out
 
 
-def bsdf_pdf(scene, tables, mat_type, surf, in_dir, out_dir):
-    _check_ported(scene.bsdf_types)
-    colors, scalars = _params(tables, surf)
+def bsdf_pdf(scene, tables, mat_type, surf, in_dir, out_dir, lobe="a"):
+    bsdf_types = lobe_types(scene, lobe)
+    _check_ported(bsdf_types)
+    colors, scalars = _params(tables, surf, lobe)
     out = torch.zeros(mat_type.shape, dtype=torch.float32,
                       device=mat_type.device)
-    if BSDF_DIFFUSE in scene.bsdf_types:
-        v = _diffuse_pdf(colors, scalars, surf, in_dir, out_dir)
-        out = torch.where(mat_type == BSDF_DIFFUSE, v, out)
+    for t in sorted(set(bsdf_types)):
+        if t in _SPECULAR:
+            continue
+        m = mat_type == t
+        ct, sc = _own(m, colors, scalars)
+        if t == BSDF_DIFFUSE:
+            v = _diffuse_pdf(ct, sc, surf, in_dir, out_dir)
+        elif t == BSDF_PHONG:
+            v = _phong_pdf(ct, sc, surf, in_dir, out_dir)
+        elif t == BSDF_ROUGH_CONDUCTOR:
+            v = _rough_conductor_pdf(ct, sc, surf, in_dir, out_dir)
+        elif t == BSDF_ROUGH_DIELECTRIC:
+            v = _rough_dielectric_pdf(ct, sc, surf, in_dir, out_dir)
+        elif t in (BSDF_PLASTIC, BSDF_ROUGH_PLASTIC):
+            v = _plastic_pdf(ct, sc, surf, in_dir, out_dir,
+                             t == BSDF_ROUGH_PLASTIC)
+        elif t == BSDF_PRINCIPLED:
+            v = _principled().principled_pdf(ct, sc, surf, in_dir, out_dir)
+        out = torch.where(m, v, out)
     return out
 
 
 def bsdf_sample(scene, tables, mat_type, surf, seed, counter, out_dir,
-                active=None, adjoint=False):
-    """Sample the union; advances counters by each lane's type draw count.
+                active=None, adjoint=False, lobe="a"):
+    """Sample the union; advances counters by each lane's draw count.
 
     Returns (in_dir, pdf, weight, eta, valid, new_counter).
     """
-    bsdf_types = scene.bsdf_types
+    bsdf_types = lobe_types(scene, lobe)
     _check_ported(bsdf_types)
     if active is None:
         active = torch.ones_like(mat_type, dtype=torch.bool)
-    colors, scalars = _params(tables, surf)
+    colors, scalars = _params(tables, surf, lobe)
     dev = out_dir.device
     shape = mat_type.shape
 
@@ -286,22 +673,39 @@ def bsdf_sample(scene, tables, mat_type, surf, seed, counter, out_dir,
     draws = torch.zeros(shape, dtype=torch.int64, device=dev)
 
     for t in sorted(set(bsdf_types)):
-        if t == BSDF_DIFFUSE:
-            r = _diffuse_sample(colors, scalars, surf, us[0], us[1], out_dir)
-        elif t == BSDF_DIELECTRIC:
-            r = _dielectric_sample(colors, scalars, surf, us[0], out_dir,
-                                   adjoint)
-        else:  # BSDF_CONDUCTOR
-            r = _conductor_sample(colors, scalars, surf, out_dir)
         m = mat_type == t
+        ct, sc = _own(m, colors, scalars)
+        if t == BSDF_DIFFUSE:
+            r = _diffuse_sample(ct, sc, surf, us[0], us[1], out_dir)
+        elif t == BSDF_DIELECTRIC:
+            r = _dielectric_sample(ct, sc, surf, us[0], out_dir,
+                                   adjoint)
+        elif t == BSDF_CONDUCTOR:
+            r = _conductor_sample(ct, sc, surf, out_dir)
+        elif t == BSDF_PHONG:
+            r = _phong_sample(ct, sc, surf, us[0], us[1], out_dir)
+        elif t == BSDF_ROUGH_CONDUCTOR:
+            r = _rough_conductor_sample(ct, sc, surf, us[0], us[1], out_dir)
+        elif t == BSDF_ROUGH_DIELECTRIC:
+            r = _rough_dielectric_sample(ct, sc, surf, us[0], us[1],
+                                         us[2], out_dir, adjoint)
+        elif t in (BSDF_PLASTIC, BSDF_ROUGH_PLASTIC):
+            r = _plastic_sample(ct, sc, surf, us[0], us[1], us[2],
+                                out_dir, t == BSDF_ROUGH_PLASTIC)
+        elif t == BSDF_PRINCIPLED:
+            r = _principled().principled_sample(ct, sc, surf, us[0], us[1],
+                                                us[2], out_dir)
+        else:  # BSDF_PASSTHROUGH
+            r = _passthrough_sample(out_dir)
         mc = m[..., None]
         in_dir = torch.where(mc, r[0], in_dir)
         pdf = torch.where(m, r[1], pdf)
         weight = torch.where(mc, r[2], weight)
         eta = torch.where(m, r[3], eta)
         valid = torch.where(m, r[4], valid)
-        draws = torch.where(m, torch.full_like(draws, _SAMPLE_DRAWS[t]),
-                            draws)
+        lane_draws = (r[5] if len(r) > 5
+                      else torch.full_like(draws, _SAMPLE_DRAWS[t]))
+        draws = torch.where(m, lane_draws, draws)
 
     new_counter = torch.where(active, (counter + draws) & rng.M32, counter)
     valid = valid & active

@@ -1,6 +1,8 @@
 """Table and metadata conversion between numpy and the port's tensors.
 
-`tables_from_numpy` is how every compiled table reaches the device.
+`tables_from_numpy` is how every compiled table reaches the device;
+`params_from_numpy` does the same and makes the named tables parameters of a
+gradient (float32 leaves that require grad).
 `runtime_from_jax_tables` builds a `Runtime` from tables and scene metadata
 compiled elsewhere (the JAX package's `Runtime`), so that tests can put the
 very same state through both packages; the normal entry points use the port's
@@ -40,6 +42,22 @@ def tables_from_numpy(tables, device):
         # a copy: the tables are written in place (setParameter) and must
         # not alias the compiled scene's arrays
         out[k] = torch.from_numpy(np.array(a, order="C")).to(device)
+    return out
+
+
+def params_from_numpy(tables, keys, device):
+    """`tables_from_numpy`, with the tables named in `keys` made float32
+    leaf tensors with `requires_grad=True`: the parameters of
+    `trace_wave(differentiable=True)` and of `parallel.sharding.train_step`.
+
+        tables = params_from_numpy(scene.tables, ("mat_colors",), "cuda")
+        trace_wave(scene, tables, x, y, 0, 0, 0, 0,
+                   differentiable=True).sum().backward()
+        tables["mat_colors"].grad
+    """
+    out = tables_from_numpy(tables, device)
+    for k in keys:
+        out[k] = out[k].to(torch.float32).requires_grad_(True)
     return out
 
 

@@ -7,6 +7,8 @@ exact float32 values, so `tensor * CONST` rounds as the reference does.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -50,8 +52,18 @@ def length2(a):
     return dot(a, a)
 
 
+def _sqrt_or_zero(a):
+    """sqrt(a) where a > 0, else 0: the value of sqrt(max(a, 0)), with a
+    zero gradient where a <= 0.  A plain sqrt's infinite slope at 0 (or the
+    clamp's 0 times it) would reach the gradient as NaN, also from lanes
+    that a `where` drops."""
+    pos = ~(a <= 0)  # NaN stays NaN
+    root = torch.sqrt(torch.where(pos, a, device_scalar(1.0, a.device)))
+    return torch.where(pos, root, device_scalar(0.0, a.device))
+
+
 def length(a):
-    return torch.sqrt(length2(a))
+    return _sqrt_or_zero(length2(a))
 
 
 def normalize(a):
@@ -66,7 +78,7 @@ def safe_div(a, b):
 
 
 def safe_sqrt(a):
-    return torch.sqrt(torch.clamp_min(a, 0.0))
+    return _sqrt_or_zero(a)
 
 
 def signbit(a):
@@ -147,3 +159,56 @@ def transform_vector(m, v):
 def transform_normal(nm, n):
     """Apply (..., 3, 3) normal matrix (inverse-transpose of linear part)."""
     return torch.einsum('...ij,...j->...i', nm, n)
+
+
+@functools.lru_cache(maxsize=None)
+def device_scalar(x, device):
+    """A 0-d float32 tensor on `device`, made once: a Python number given to
+    `torch.where` is made on the device anew (a launch) at every call."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _host_scalar(x):
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _operand(x):
+    # a Python number becomes a 0-d float32 tensor on the host, which PyTorch
+    # takes as a scalar beside a tensor on any device: no launch, no copy
+    if isinstance(x, torch.Tensor):
+        return x
+    return _host_scalar(float(x))
+
+
+def maximum(a, b):
+    """Elementwise max whose gradient splits at a tie, as `jnp.maximum`'s
+    does (`torch.clamp_min` routes all of it to the input)."""
+    return torch.maximum(_operand(a), _operand(b))
+
+
+def minimum(a, b):
+    """Elementwise min, gradient split at a tie (`jnp.minimum`)."""
+    return torch.minimum(_operand(a), _operand(b))
+
+
+def clip(x, lo=None, hi=None):
+    """`jnp.clip`: max with `lo`, then min with `hi`, each tie split."""
+    if lo is not None:
+        x = maximum(x, lo)
+    if hi is not None:
+        x = minimum(x, hi)
+    return x
+
+
+def ipow(x, n):
+    """x ** n for a positive integer n by the square-and-multiply order of
+    XLA's `integer_pow`, so the rounding is the JAX package's."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n:
+            x = x * x
+    return acc

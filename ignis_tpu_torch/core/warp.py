@@ -4,7 +4,9 @@ from __future__ import annotations
 
 import torch
 
-from ignis_tpu_torch.core.vec import PI, safe_div, safe_sqrt, vec2, vec3
+from ignis_tpu_torch.core.vec import (
+    PI, maximum, minimum, safe_div, safe_sqrt, vec2, vec3,
+)
 
 _PI64 = 3.14159265358979323846
 
@@ -38,6 +40,23 @@ def sample_cosine_hemisphere(u, v):
     phi = 2.0 * PI * u
     return (vec3(s * torch.cos(phi), s * torch.sin(phi), c),
             cosine_hemisphere_pdf(c))
+
+
+def cosine_power_hemisphere_pdf(c, k):
+    return (torch.pow(maximum(c, 0.0), k) * (k + 1.0)
+            * (1.0 / (2.0 * _PI64)))
+
+
+def sample_cosine_power_hemisphere(k, u, v):
+    """Z-up cosine-power lobe of exponent k."""
+    c = minimum(torch.pow(v, 1.0 / (k + 1.0)), 1.0)
+    s = safe_sqrt(1.0 - c * c)
+    phi = 2.0 * PI * u
+    nz = c != 0.0
+    pow_c_k = torch.where(nz, v / torch.where(nz, c, torch.ones_like(c)),
+                          torch.zeros_like(c))
+    pdf = pow_c_k * (k + 1.0) * (1.0 / (2.0 * _PI64))
+    return vec3(s * torch.cos(phi), s * torch.sin(phi), c), pdf
 
 
 def square_to_concentric_disk(px, py):

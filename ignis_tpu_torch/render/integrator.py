@@ -16,7 +16,8 @@ Two entry points share the same bounce core:
 
 The bounce loops are Python loops on `alive.any()`: one host sync per bounce
 (plus one in the light selector's rejection loop when the scene has more than
-one light).
+one light).  `trace_wave(differentiable=True)` runs a fixed number of bounces
+instead, for autograd.
 
 Traversal dispatch for the world-space soup: `pb_rows` in the tables -> the
 packet-BVH kernel; `bw_tris` -> the Baldwin-Weber kernel; neither -> the
@@ -529,11 +530,14 @@ def trace_wave(scene, tables, x, y, sample, iteration, frame, user_seed,
     x, y: (N,) integer tensors; their device is the device of the run.
     If org/direction are given, acts as the list emitter: no pixel-sampler
     draws, rays used as provided.
+
+    differentiable=True runs a fixed `min(max_depth, 64)` bounces over every
+    lane, dead lanes masked, with no host sync and no tail cascade (the
+    reference's `lax.scan`), so that `backward()` runs through the result
+    to any table given as a tensor that requires grad.  Every lane ends
+    within `max_depth` bounces, so the radiance is the same as the
+    non-differentiable loop's.  Traversal stays off the tape.
     """
-    if differentiable:
-        raise NotImplementedError(
-            "trace_wave(differentiable=True) is not ported to "
-            "ignis_tpu_torch yet")
     _check_tables(tables)
     n = x.shape[0]
     dev = x.device
@@ -559,33 +563,36 @@ def trace_wave(scene, tables, x, y, sample, iteration, frame, user_seed,
     shadow_mask = (None if _flags_trivial(scene, RAY_SHADOW)
                    else _tri_mask_for(tables, RAY_SHADOW))
 
-    bounce_index = 0
-
-    def bounce(state, accum):
-        first = bounce_index == 0
+    def bounce(state, accum, first):
         tri_mask = mask_cam if first else mask_bounce
         mbit = MASK_CAMERA if first else MASK_BOUNCE
         splat, st_next, _q = _bounce_core(scene, tables, state, tri_mask,
                                           shadow_mask, mask_bit=mbit)
         return st_next, accum + splat
 
+    if differentiable:
+        for i in range(min(scene.technique.max_depth, 64)):
+            state, accum = bounce(state, accum, i == 0)
+        return accum
+
     tail_cap = 2048
+    first = True
     if n <= tail_cap * 2:
         while bool(state["alive"].any()):
-            state, accum = bounce(state, accum)
-            bounce_index += 1
+            state, accum = bounce(state, accum, first)
+            first = False
         return accum
 
     # tail cascade: full-width waves while busy, then compact the survivors
     # into a narrow wave and add their radiance back per lane
     while int(state["alive"].sum()) > tail_cap:
-        state, accum = bounce(state, accum)
-        bounce_index += 1
+        state, accum = bounce(state, accum, first)
+        first = False
     order, tail = _compact(state, tail_cap)
     tail_accum = torch.zeros((tail_cap, 3), dtype=torch.float32, device=dev)
     while bool(tail["alive"].any()):
-        tail, tail_accum = bounce(tail, tail_accum)
-        bounce_index += 1
+        tail, tail_accum = bounce(tail, tail_accum, first)
+        first = False
     # in place: `order` holds distinct lanes
     accum.index_add_(0, order, tail_accum)
     return accum

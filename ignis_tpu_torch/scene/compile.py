@@ -1488,7 +1488,12 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
     return cs
 
 
-_SLICE_BSDFS = (BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR)
+_SLICE_BSDFS = (BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PHONG,
+                BSDF_PLASTIC, BSDF_PRINCIPLED, BSDF_PASSTHROUGH,
+                BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC,
+                BSDF_ROUGH_PLASTIC)
+# normal modifier kinds: 0 none, 3 the constant normal (and tangent) set
+_SLICE_NMODS = (0, 3)
 _SLICE_LIGHTS = (LIGHT_POINT, LIGHT_AREA_PLANE, LIGHT_AREA_MESH, LIGHT_ENV,
                  LIGHT_AREA_SPHERE)
 
@@ -1508,13 +1513,14 @@ def check_slice(cs: CompiledScene) -> None:
         no(f"sampler '{cs.sampler}'")
     if cs.camera.type != "perspective":
         no(f"camera type '{cs.camera.type}'")
-    for name, t in zip(cs.material_names, cs.bsdf_types):
-        if t not in _SLICE_BSDFS:
-            no(f"BSDF type id {t} (material '{name}')")
-    if any(t >= 0 for t in cs.bsdf_types_b):
-        no("two-lobe (mix/add/mask/cutoff) BSDFs")
-    if any(cs.nmod_kinds):
-        no("normal modifiers (bumpmap/normalmap/transform)")
+    for name, t, tb in zip(cs.material_names, cs.bsdf_types,
+                           cs.bsdf_types_b):
+        if t not in _SLICE_BSDFS or (tb >= 0 and tb not in _SLICE_BSDFS):
+            no(f"BSDF type id {t if t not in _SLICE_BSDFS else tb} "
+               f"(material '{name}')")
+    if any(k not in _SLICE_NMODS for k in cs.nmod_kinds):
+        no("normal modifiers other than a constant normal "
+           "(bumpmap/normalmap/PExpr transform)")
     if cs.textures:
         no("textures / PExpr expressions")
     if cs.media:

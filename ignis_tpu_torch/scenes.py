@@ -59,6 +59,67 @@ def demo_scene():
     }
 
 
+def materials_scene():
+    """The demo box with one material of each kind the port shades beyond
+    the demo's: a rough conductor, a rough dielectric, smooth and rough
+    plastic, a principled BSDF (metallic and specular transmission set), a
+    phong lobe, a `blend` of diffuse and the rough conductor at weight 0.4
+    and a `transform` normal modifier over a diffuse wall, seen through the
+    box's open side, lit by a point lamp and the environment.  Depth 6, 434 triangles: the Baldwin-Weber tables serve
+    it."""
+    scene = demo_scene()
+    scene["camera"] = dict(scene["camera"], transform=[
+        1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -3.85, 0, 0, 0, 1])
+    scene["bsdfs"] = [
+        {"type": "diffuse", "name": "white", "reflectance": [0.8, 0.8, 0.8]},
+        {"type": "diffuse", "name": "blue",
+         "reflectance": [0.106, 0.195, 0.8]},
+        {"type": "roughconductor", "name": "brushed", "material": "gold",
+         "roughness": 0.25},
+        {"type": "roughdielectric", "name": "frosted", "int_ior": 1.5,
+         "roughness": 0.2},
+        {"type": "plastic", "name": "plastic",
+         "diffuse_reflectance": [0.7, 0.15, 0.1]},
+        {"type": "roughplastic", "name": "rough_plastic",
+         "diffuse_reflectance": [0.15, 0.6, 0.2], "roughness": 0.3},
+        {"type": "principled", "name": "principled",
+         "base_color": [0.8, 0.6, 0.3], "metallic": 0.3,
+         "specular_transmission": 0.5, "roughness": 0.4},
+        {"type": "phong", "name": "phong",
+         "specular_reflectance": [0.6, 0.6, 0.7], "exponent": 20},
+        {"type": "blend", "name": "blend", "first": "white",
+         "second": "brushed", "weight": 0.4},
+        {"type": "transform", "name": "tilted", "bsdf": "blue",
+         "normal": [0.25, 0.2, -1.0]},
+    ]
+    scene["shapes"] += [
+        {"type": "icosphere", "name": "ball2", "radius": 0.3,
+         "subdivisions": 2,
+         "transform": [{"translate": [-0.55, -0.65, -0.3]}]},
+        {"type": "rectangle", "name": "left", "width": 2, "height": 2,
+         "transform": [{"translate": [-1, 0, 0]}, {"rotate": [0, 90, 0]}]},
+        {"type": "rectangle", "name": "right", "width": 2, "height": 2,
+         "transform": [{"translate": [1, 0, 0]}, {"rotate": [0, -90, 0]}]},
+        {"type": "cube", "name": "block", "width": 0.35, "height": 0.35,
+         "depth": 0.35, "transform": [{"translate": [0.1, -0.8, -0.6]}]},
+    ]
+    mats = dict(light="white", floor="plastic", back="tilted", box="frosted",
+                ball="brushed", ball2="principled", left="rough_plastic",
+                right="phong", block="blend")
+    scene["entities"] = [dict(name=k, shape=k, bsdf=v)
+                         for k, v in mats.items()]
+    # a point lamp under the ceiling panel: an area light's corner, edges
+    # and normal sit in `light_data` beside its emitting triangles, so a
+    # gradient step on `light_data` would move the sampled quad off the
+    # traced one, and the shadow rays of the walls near it would hit it
+    scene["lights"] = [
+        {"type": "point", "name": "lamp", "position": [0.1, 0.55, -0.1],
+         "intensity": [2, 2, 2]},
+        {"type": "env", "name": "env", "radiance": [0.1, 0.1, 0.15]},
+    ]
+    return scene
+
+
 def big_scene(n_spheres=25, subdiv=5):
     """A field of icospheres over a floor under a constant environment,
     depth 4, 512x512 film.  The defaults give 512,002 triangles."""

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where a `Runtime.step` of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_profile_step.py [demo|big|both|instanced|sweep|all]
+    python3 scripts/torch_profile_step.py \
+        [demo|big|both|instanced|sweep|materials|all]
 
 `both` is demo and big; `instanced` is the 1024-instance scene, `sweep` the
-32,002-triangle scene with un-accelerated tables; `all` is the four.  Every
+32,002-triangle scene with un-accelerated tables, `materials` the demo box
+with the rough, plastic, phong, principled and two-lobe BSDFs; `all` is the
+five.  Every
 scene renders at 512x512.  Runs one warm-up step and then profiles one step
 of the scene(s) with `torch.profiler` (CPU + CUDA activities) and prints, per
 scene, one JSON line: the step's wall time (host clock closed by a
 synchronise), the summed device time of all kernels, the device's idle share
 (1 - device time / wall time), the number of kernels launched, the share of
 the port's traversal kernels, each traversal kernel's device time and launch
-count, and the ten kernels with the most device time.
+count, the ten kernels with the most device time and the fifteen PyTorch
+operators the host called most often.
 Needs a CUDA device; prints the card's name and power limit first.
 """
 
@@ -51,6 +55,9 @@ def profile_step(name, rt, spi):
         if dev_us > 0 and e.device_type.name != "CPU":
             rows.append((e.key, float(dev_us), int(e.count)))
     rows.sort(key=lambda r: -r[1])
+    # the host's operator calls (each elementwise one a launch or more)
+    ops = sorted(((e.key, int(e.count)) for e in prof.key_averages()
+                  if e.key.startswith("aten::")), key=lambda r: -r[1])
     dev_s = sum(r[1] for r in rows) / 1e6
     trav_s = sum(r[1] for r in rows
                  if any(k in r[0] for k in _TRAVERSAL_KERNELS)) / 1e6
@@ -68,6 +75,7 @@ def profile_step(name, rt, spi):
             for k, us, c in rows if any(t in k for t in _TRAVERSAL_KERNELS)],
         "top_kernels": [dict(name=k[:80], device_ms=round(us / 1e3, 3),
                              count=c) for k, us, c in rows[:10]],
+        "most_called_ops": dict(ops[:15]),
     }), flush=True)
 
 
@@ -81,8 +89,11 @@ def main():
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), flush=True)
     from ignis_tpu_torch.api import Runtime
-    from ignis_tpu_torch.scenes import big_scene, demo_scene, instanced_scene
-    if which not in ("demo", "big", "both", "instanced", "sweep", "all"):
+    from ignis_tpu_torch.scenes import (
+        big_scene, demo_scene, instanced_scene, materials_scene,
+    )
+    if which not in ("demo", "big", "both", "instanced", "sweep",
+                     "materials", "all"):
         print(f"unknown scene '{which}'", file=sys.stderr)
         return 2
     if which in ("demo", "both", "all"):
@@ -98,6 +109,9 @@ def main():
         tables = dict(scene.tables)
         tables["tri_shade"] = pack_tri_shade(tables)
         profile_step("sweep", Runtime.from_compiled(scene, tables), 1)
+    if which in ("materials", "all"):
+        profile_step("materials",
+                     Runtime(materials_scene(), width=512, height=512), 1)
     return 0
 
 

@@ -217,21 +217,20 @@ OUT_OF_SLICE = {
         film={"size": [8, 8], "sampler": "mjitt"}),
     "camera orthogonal": lambda: _flat_with(
         camera=dict(create_flat_scene()["camera"], type="orthogonal")),
-    "bsdf principled": lambda: _flat_bsdf({"type": "principled"}),
-    "bsdf roughconductor": lambda: _flat_bsdf(
-        {"type": "conductor", "roughness": 0.3}),
-    "bsdf plastic": lambda: _flat_bsdf({"type": "plastic"}),
-    "bsdf phong": lambda: _flat_bsdf({"type": "phong"}),
     "bsdf texture color": lambda: _flat_bsdf(
         {"type": "diffuse", "reflectance": "checker"}),
     "bsdf pexpr number": lambda: _flat_bsdf(
         {"type": "dielectric", "int_ior": "1.2 + 0.3"}),
-    "bsdf blend": lambda: _flat_plus("bsdfs", {
+    "bsdf blend textured weight": lambda: dict(_flat_plus("bsdfs", {
         "type": "blend", "name": "mixed", "first": "ground",
-        "second": "ground", "weight": 0.5}),
-    "bsdf normalmap": lambda: _flat_plus("bsdfs", {
+        "second": "ground", "weight": "checker"}), textures=[
+        {"type": "checkerboard", "name": "checker"}]),
+    "bsdf normalmap texture": lambda: _flat_plus("bsdfs", {
+        "type": "normalmap", "name": "nm", "bsdf": "ground",
+        "map": "checker"}),
+    "bsdf transform pexpr normal": lambda: _flat_plus("bsdfs", {
         "type": "transform", "name": "nm", "bsdf": "ground",
-        "normal": [0, 1, 0]}),
+        "normal": "vec3(0, 1, 0)"}),
     "textures": lambda: _flat_with(textures=[
         {"type": "checkerboard", "name": "checker"}]),
     "media": lambda: _flat_with(media=[
@@ -250,14 +249,45 @@ OUT_OF_SLICE = {
     "camera != bounce visibility": lambda: _flat_entity(camera_visible=False),
 }
 
+def _flat_material(*bsdfs):
+    """The flat scene under a white sky, its ground shaded by the last of
+    `bsdfs` (named "ground"); the others are what it refers to."""
+    s = _flat_with(bsdfs=list(bsdfs[:-1]) + [dict(bsdfs[-1],
+                                                  name="ground")])
+    s["lights"] = [{"type": "env", "name": "e", "radiance": [1, 1, 1]}]
+    return s
+
+
 # what raised while the slice was narrower and is inside it now: held to
-# compile, build its tables and render instead
+# compile, build its tables and render instead.  Each case's predicate
+# (Runtime, index of the "ground" material) says what the compiled scene
+# must hold.
 MOVED_INTO_SLICE = {
-    "analytic sphere": lambda: dict(
+    "analytic sphere": (lambda: dict(
         _flat_with(), shapes=[{"type": "sphere", "name": "Bottom"}]),
-    "instancing": lambda: _flat_plus("entities", {
+        lambda rt, g: "sph_rows" in rt.tables),
+    "instancing": (lambda: _flat_plus("entities", {
         "name": "Second", "shape": "Bottom", "bsdf": "ground",
         "transform": {"translate": [0, 0, 1]}}),
+        lambda rt, g: "tl_inst" in rt.tables),
+    "bsdf principled": (lambda: _flat_material({"type": "principled"}),
+                        lambda rt, g: rt.scene.bsdf_types[g] == 5),
+    "bsdf roughconductor": (lambda: _flat_material(
+        {"type": "conductor", "roughness": 0.3}),
+        lambda rt, g: rt.scene.bsdf_types[g] == 11),
+    "bsdf plastic": (lambda: _flat_material({"type": "plastic"}),
+                     lambda rt, g: rt.scene.bsdf_types[g] == 4),
+    "bsdf phong": (lambda: _flat_material({"type": "phong"}),
+                   lambda rt, g: rt.scene.bsdf_types[g] == 3),
+    "bsdf blend": (lambda: _flat_material(
+        {"type": "diffuse", "name": "a"},
+        {"type": "conductor", "name": "b", "roughness": 0.2},
+        {"type": "blend", "first": "a", "second": "b", "weight": 0.5}),
+        lambda rt, g: rt.scene.bsdf_types_b[g] == 11),
+    "bsdf normalmap": (lambda: _flat_material(
+        {"type": "diffuse", "name": "a"},
+        {"type": "transform", "bsdf": "a", "normal": [0, 0.3, -1]}),
+        lambda rt, g: rt.scene.nmod_kinds[g] == 3),
 }
 
 
@@ -270,11 +300,15 @@ def test_out_of_slice_scene_raises(what):
 
 @pytest.mark.parametrize("what", sorted(MOVED_INTO_SLICE))
 def test_moved_into_slice_scene_renders(what):
-    rt = tapi.Runtime(MOVED_INTO_SLICE[what](), device="cpu")
-    assert ("sph_rows" if what == "analytic sphere" else "tl_inst") \
-        in rt.tables
+    scene_fn, holds = MOVED_INTO_SLICE[what]
+    scene = scene_fn()
+    rt = tapi.Runtime(scene, device="cpu")
+    assert holds(rt, rt.scene.material_names.index("ground"))
     rt.step()
-    assert np.isfinite(rt.currentFrame()).all()
+    img = rt.currentFrame()
+    assert np.isfinite(img).all()
+    if scene.get("lights"):
+        assert img.mean() > 0
 
 
 def test_shadow_only_flags_stay_in_the_slice():
