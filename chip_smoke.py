@@ -25,8 +25,13 @@ and dielectric, plastic, phong, principled, a two-lobe blend and a constant
 normal modifier) through `Runtime.step`; the gradient of the demo's summed
 differentiable render with respect to `mat_colors` at 2^19 lanes
 (`trace_wave(differentiable=True)`, held to the gradient taken with the
-plain traversal); and five SGD steps of `parallel.sharding.train_step` on the
-materials scene, whose losses must fall.  Every phase prints one
+plain traversal); five SGD steps of `parallel.sharding.train_step` on the
+materials scene, whose losses must fall; and the textured scene (image,
+checkerboard, brick, noise and PExpr textures on color slots, a blend weight,
+normal, bump and PExpr normals and a uniformly sampled image environment)
+through `Runtime.step`, a registry change on its next frame, and the gradient
+of its summed differentiable render with respect to its albedo texels and
+its registry at 2^18 lanes.  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -35,6 +40,7 @@ falls back to the CPU.  The last line of the output is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -56,6 +62,7 @@ MEAN_REL = 0.02           # kernel render vs plain render, image mean
 FWDBWD_LANES = 1 << 19    # lanes of the gradient phase (`phase_fwdbwd`'s)
 GRAD_REL = 1e-4           # its gradient, kernels vs plain traversal
 TRAIN_STEPS, TRAIN_LR = 5, 0.5
+TEXTURED_LANES = 1 << 18  # lanes of the textured scene's gradient
 # the path technique's clamp of each contribution in the `train` phase: a
 # few unclamped firefly lanes (up to 6,064 in a 512x512 render of the
 # materials scene on an H100, the JAX package's render the same there:
@@ -724,6 +731,7 @@ PATH_KERNELS = {
     "materials": ("bw_closest", "bw_any"),
     "fwdbwd": ("bw_closest", "bw_any"),
     "train": ("bw_closest", "bw_any"),
+    "textured": ("bw_closest", "bw_any"),
 }
 
 
@@ -800,18 +808,18 @@ def lanes_over_film(n, film, dev):
     return idx % film, (idx // film) % film
 
 
-def grad_of_summed_render(rt, x, y):
-    """The differentiable render (detached) and d (its sum * 1e-6) /
-    d mat_colors: the reference's `phase_fwdbwd` loss, with sample,
+def grad_of_summed_render(rt, x, y, keys):
+    """The differentiable render (detached) and d (its sum * 1e-6) / d each
+    table of `keys`: the reference's `phase_fwdbwd` loss, with sample,
     iteration, frame and seed 0."""
     from ignis_tpu_torch.render.integrator import trace_wave
     tables = dict(rt.tables)
-    mc = tables["mat_colors"].detach().clone().requires_grad_(True)
-    tables["mat_colors"] = mc
+    for k in keys:
+        tables[k] = rt.tables[k].detach().clone().requires_grad_(True)
     color = trace_wave(rt.scene, tables, x, y, 0, 0, 0, 0,
                        differentiable=True)
     (color.sum() * 1e-6).backward()
-    return color.detach(), mc.grad
+    return color.detach(), {k: tables[k].grad for k in keys}
 
 
 def same_bits(path, got, want):
@@ -831,46 +839,56 @@ def bw_plain(bw):
                                bw_any=bw.bw_any_plain)
 
 
-def fwdbwd(rt, n, wrappers, bw, reps=2):
-    """The gradient phase on `rt` at `n` lanes: launches per call, seconds
-    per call after a warm-up (host clock closed by a synchronise), peak
-    device memory, and the per-lane render (bit for bit) and the gradient
-    held to those taken with the plain traversal patched in: every launch
-    of the phase is `n` rays wide."""
-    x, y = lanes_over_film(n, rt.width, rt.tables["mat_colors"].device)
+def fwdbwd(path, rt, n, wrappers, bw, keys, reps):
+    """A gradient phase on `rt` at `n` lanes with respect to the tables of
+    `keys`: launches per call, seconds per call over `reps` calls after a
+    warm-up (host clock closed by a synchronise), their peak device memory,
+    and the per-lane render (bit for bit) and each gradient held to those
+    taken with the plain traversal patched in: every launch of the phase is
+    `n` rays wide."""
+    x, y = lanes_over_film(n, rt.width, rt.tables[keys[0]].device)
     depth = min(rt.scene.technique.max_depth, 64)
     reset_counts(wrappers)
-    color, g = grad_of_summed_render(rt, x, y)       # also the warm-up
+    color, g = grad_of_summed_render(rt, x, y, keys)   # also the warm-up
     torch.cuda.synchronize()
     per_call = {f.__name__: f.launches for f in wrappers}
-    if any(per_call[k] != depth for k in PATH_KERNELS["fwdbwd"]):
-        fail(f"fwdbwd: launches {per_call} per call, not one of each of "
-             f"{PATH_KERNELS['fwdbwd']} in each of {depth} bounces")
-    gh = g.cpu().numpy()
-    if not np.isfinite(gh).all() or not (gh != 0).any():
-        fail("fwdbwd: the gradient is not finite or is all zero")
+    if any(per_call[k] != depth for k in PATH_KERNELS[path]):
+        fail(f"{path}: launches {per_call} per call, not one of each of "
+             f"{PATH_KERNELS[path]} in each of {depth} bounces")
+    gh = {k: v.cpu().numpy() for k, v in g.items()}
+    for k, v in gh.items():
+        if not np.isfinite(v).all() or not (v != 0).any():
+            fail(f"{path}: the gradient w.r.t. {k} has "
+                 f"{int((~np.isfinite(v)).sum())} non-finite entries or is "
+                 "all zero")
     torch.cuda.reset_peak_memory_stats()
     ta = time.perf_counter()
     for _ in range(reps):
-        grad_of_summed_render(rt, x, y)
+        grad_of_summed_render(rt, x, y, keys)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - ta) / reps
     peak = torch.cuda.max_memory_allocated()
     launches = {f.__name__: f.launches for f in wrappers}
     with bw_plain(bw):
-        color_plain, gp = grad_of_summed_render(rt, x, y)
-    lanes_equal = same_bits("fwdbwd", color, color_plain)
-    gp = gp.cpu().numpy()
-    nz = (gh != 0) | (gp != 0)
-    rel = float(np.max(np.abs(gh[nz] - gp[nz])
-                       / np.maximum(np.abs(gp[nz]), 1e-30)))
-    if rel > GRAD_REL:
-        fail(f"fwdbwd: kernel gradient vs plain-traversal gradient: max "
-             f"relative difference {rel} > {GRAD_REL}")
-    return dict(lanes=n, bounces=depth, seconds_per_call=round(dt, 4),
+        color_plain, gp = grad_of_summed_render(rt, x, y, keys)
+    lanes_equal = same_bits(path, color, color_plain)
+    rels = {}
+    for k in keys:
+        a, b = gh[k], gp[k].cpu().numpy()
+        nz = (a != 0) | (b != 0)
+        rels[k] = float(np.max(np.abs(a[nz] - b[nz])
+                               / np.maximum(np.abs(b[nz]), 1e-30)))
+        if rels[k] > GRAD_REL:
+            fail(f"{path}: kernel gradient w.r.t. {k} vs plain-traversal "
+                 f"gradient: max relative difference {rels[k]} > {GRAD_REL}")
+    return dict(lanes=n, bounces=depth, keys=list(keys),
+                seconds_per_call=round(dt, 4),
                 mrays_per_s=round(n / dt / 1e6, 4),
-                peak_memory_gb=round(peak / 1e9, 3), grad_finite=True,
-                grad_nonzero=int((gh != 0).sum()), grad_max_rel_vs_plain=rel,
+                peak_memory_gb=round(peak / 1e9, 3),
+                grad_nonzero={k: int((v != 0).sum()) for k, v in gh.items()},
+                grad_max_rel_vs_plain=rels,
+                grad_bit_equal_to_plain={k: bool(torch.equal(g[k], gp[k]))
+                                         for k in keys},
                 render_lanes_bit_equal_to_plain=lanes_equal,
                 launches_per_call=per_call, launches=launches)
 
@@ -942,6 +960,46 @@ def train(rt, steps, lr, wrappers, bw):
                 launches=launches)
 
 
+def launches_per_iteration(rt, spi):
+    """Device kernels a wave iteration of one `rt.step`, counted by
+    `torch.profiler` (each CUDA kernel, memset or copy the step launched,
+    of any op).  The raw events are counted: `key_averages()` would turn
+    each of some 200,000 into a Python object first (a minute)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    before = rt._dev_stats.cpu().numpy()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rt.step(spi=spi)
+    after = rt._dev_stats.cpu().numpy()
+    iters = int((after[0] + after[2]) - (before[0] + before[2]))
+    n = sum(1 for e in prof.profiler.kineto_results.events()
+            if e.device_type() != DeviceType.CPU)
+    return round(n / max(iters, 1), 1)
+
+
+def registry_change(rt, name, value, spi, m0):
+    """Set a registry parameter and render the next frame (`render_mean`;
+    `m0` is its mean before): the frame must change, and every table stay
+    the same tensor in the same storage, all but `params` with the same bits
+    (nothing rebuilt).  Restores the parameter."""
+    before = {k: (v, v.data_ptr(), v.clone()) for k, v in rt.tables.items()
+              if torch.is_tensor(v)}
+    old = rt.getParameter(name)
+    rt.setParameter(name, value)
+    m1 = render_mean(rt, spi)
+    for k, (obj, ptr, copy_) in before.items():
+        t = rt.tables[k]
+        if t is not obj or t.data_ptr() != ptr:
+            fail(f"textured: setParameter replaced table {k}")
+        if k != "params" and not torch.equal(t, copy_):
+            fail(f"textured: setParameter changed table {k}")
+    if m1 == m0:
+        fail(f"textured: setParameter({name!r}) left the frame unchanged")
+    rt.setParameter(name, old)
+    return dict(parameter=name, mean_before=m0, mean_after=m1,
+                tables_rebuilt=0)
+
+
 def sweep_runtime(film, dev):
     """The sweep scene's compiled tables as they are, plus the shading rows:
     neither Baldwin-Weber nor packet rows, so the whole-soup kernel runs."""
@@ -973,6 +1031,7 @@ def main():
     from ignis_tpu_torch.scene.compile import load_and_compile
     from ignis_tpu_torch.scenes import (
         big_scene, demo_scene, instanced_scene, materials_scene,
+        textured_scene,
     )
 
     # ---- 1. device
@@ -1157,7 +1216,8 @@ def main():
     # ---- 9. fwdbwd: the gradient of the summed differentiable render of the
     # demo scene with respect to mat_colors (the reference's phase_fwdbwd)
     t0 = time.perf_counter()
-    runs["fwdbwd"] = fwdbwd(rt_demo, FWDBWD_LANES, wrappers, bw)
+    runs["fwdbwd"] = fwdbwd("fwdbwd", rt_demo, FWDBWD_LANES, wrappers, bw,
+                            ("mat_colors",), reps=2)
     emit("fwdbwd", t0, **runs["fwdbwd"])
 
     # ---- 10. train: SGD steps of parallel.sharding.train_step on the
@@ -1169,6 +1229,38 @@ def main():
     runs["train"] = train(rt_train, TRAIN_STEPS, TRAIN_LR, wrappers, bw)
     emit("train", t0, **runs["train"], clamp=TRAIN_CLAMP,
          film=[rt_train.width, rt_train.height])
+
+    # ---- 11. textured: image, checkerboard, brick, noise and PExpr textures
+    # on every kind of slot through Runtime.step (kernel 1), a registry
+    # change, and the gradient w.r.t. texels and registry
+    t0 = time.perf_counter()
+    tex_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "textured_scene")
+    os.makedirs(tex_dir, exist_ok=True)
+    rt_tex = Runtime(textured_scene(tex_dir), width=FILM, height=FILM,
+                     device=dev)
+    runs["textured"] = timed_steps("textured", rt_tex, 2, 1, wrappers)
+    t1 = time.perf_counter()
+    means = kernel_and_plain_means("textured", rt_tex, 1, dict(
+        bw_closest=bw.bw_closest_plain, bw_any=bw.bw_any_plain))
+    t2 = time.perf_counter()
+    per_iter = launches_per_iteration(rt_tex, 1)
+    t3 = time.perf_counter()
+    reg = registry_change(rt_tex, "p_col1", [0.2, 0.9, 0.3], 1,
+                          means["mean_kernel"])
+    t4 = time.perf_counter()
+    grad = fwdbwd("textured", rt_tex, TEXTURED_LANES, wrappers, bw,
+                  (rt_tex.scene.textures[0]["img_key"], "params"), reps=1)
+    emit("textured", t0, **runs["textured"], **means,
+         launches_per_wave_iteration=per_iter, registry=reg, gradient=grad,
+         part_seconds=dict(steps=round(t1 - t0, 3), means=round(t2 - t1, 3),
+                           profile=round(t3 - t2, 3),
+                           registry=round(t4 - t3, 3),
+                           grad=round(time.perf_counter() - t4, 3)),
+         tris=int(rt_tex.tables["tri_v0"].shape[0]),
+         textures=[t["type"] for t in rt_tex.scene.textures],
+         nmod_kinds=rt_tex.scene.nmod_kinds,
+         env_texture=rt_tex.scene.lights[1].tex)
 
     # ---- the kernels line: launches are those of the main paths' runs, in
     # all and for each path that has to launch the kernel

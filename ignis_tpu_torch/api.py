@@ -226,6 +226,27 @@ class Runtime:
         v = self.tables["params"][off:off + size].cpu().numpy()
         return float(v[0]) if kind in ("num", "int") else v
 
+    def bake(self, texture, width=256, height=256) -> np.ndarray:
+        """Bake a texture or PExpr expression to an (H, W, 3) image over the
+        unit uv grid, uv = (x / (w - 1), y / (h - 1)), with no shading
+        context.  `texture` is a scene texture NAME or a PExpr string.
+        Registry parameters are read from the current `params` table."""
+        from ignis_tpu_torch.texture.eval import eval_one
+        from ignis_tpu_torch.texture.loader import TEX_EXPR
+        tex = next((t for t in self.scene.textures
+                    if t.get("name") == texture), None)
+        if tex is None:
+            tex = dict(type=TEX_EXPR, name="__bake", expr=str(texture),
+                       obj={})
+        us = np.arange(width, dtype=np.float32) / max(width - 1, 1)
+        vs = np.arange(height, dtype=np.float32) / max(height - 1, 1)
+        uu, vv = np.meshgrid(us, vs)
+        uv = torch.from_numpy(np.stack([uu.reshape(-1), vv.reshape(-1)],
+                                       axis=-1)).to(self.device)
+        with torch.no_grad():
+            out = eval_one(self.scene, self.tables, tex, uv)
+        return out.cpu().numpy().reshape(height, width, 3)
+
     def setCameraOrientationParameter(self, eye, dir, up):
         self.setParameter("__camera_eye", eye)
         self.setParameter("__camera_dir", dir)

@@ -12,24 +12,27 @@ scenes without wrappers take the single-lobe path.
   * sample: u < 1-k -> lobe A else B, then the one-sample MIS combine with
     the other lobe unless that one is specular; `add` samples lobe A only.
   * is_specular = specA & specB.
-Normal modifier kind 3 (`transform` with a constant normal and optional
-tangent) rotates the shading frame by the minimal rotation taking the old
-normal to the new one.  Normal maps, bump maps, PExpr normals (kinds 1, 2,
-4) and textured mix weights wait for the texture port and raise.
+Normal modifiers: a strength-lerped normal map (kind 1), forward-difference
+bump gradients at delta 1e-3 (kind 2), a constant normal and optional
+tangent (kind 3) and a PExpr normal evaluated with the full shading context
+(kind 4); the shading frame is rotated by the minimal rotation taking the old
+normal to the new one.  Mix weights and lobe B's color slots may be textured.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ignis_tpu_torch.bsdf import union
 from ignis_tpu_torch.core import rng
 from ignis_tpu_torch.core.dgather import gather_rows
 from ignis_tpu_torch.core.vec import (
-    FLT_EPS, clip, cross, dot, maximum, normalize, safe_div,
+    FLT_EPS, clip, cross, device_const, dot, maximum, normalize, safe_div,
 )
-
-_NMOD_PORTED = {0, 3}
+from ignis_tpu_torch.texture.eval import (
+    eval_texture_stack, resolve_color, texture_ids,
+)
 
 
 def scene_has_lobes(scene) -> bool:
@@ -38,16 +41,6 @@ def scene_has_lobes(scene) -> bool:
 
 def scene_has_nmod(scene) -> bool:
     return any(getattr(scene, "nmod_kinds", []))
-
-
-def _check(scene):
-    # a textured mix weight needs textures, which `union.material_params`
-    # refuses
-    kinds = set(getattr(scene, "nmod_kinds", [])) - _NMOD_PORTED
-    if kinds:
-        raise NotImplementedError(
-            f"normal modifier kinds {sorted(kinds)} (normal map, bump map, "
-            "PExpr normal) are not ported to ignis_tpu_torch yet")
 
 
 # ------------------------------------------------------------ normal mods
@@ -62,29 +55,75 @@ def _align_rotation_apply(a, b, x):
             + v * (dot(v, x) * f)[..., None])
 
 
-def apply_normal_mod(scene, tables, surf, d):
-    """Perturb the shading frame by the material's normal modifier."""
+def apply_normal_mod(scene, tables, surf, d, org=None):
+    """Perturb the shading frame by the material's normal modifier.  `org`
+    (the rays' origins) is read by PExpr normals only."""
     if not scene_has_nmod(scene):
         return surf
     mat_id = surf["mat_id"].long()
     kind = tables["mat_nmod_kind"][mat_id]          # (N,)
     f = tables["mat_nmod_f"][mat_id]                # (N, 8)
+    tex = tables["mat_nmod_tex"][mat_id]            # (N,)
+    uv = surf["tex"]
     n, t, b = surf["n"], surf["t"], surf["b"]
+    strength = f[:, 0]
 
-    # the normal and tangent set (kind 3)
-    is3 = (kind == 3)[..., None]
-    n_new = torch.where(is3, normalize(f[:, 1:4]), n)
+    kinds_present = set(scene.nmod_kinds)
+    nmod_tex = scene.tables["mat_nmod_tex"]
+
+    def ids(k):
+        # the textures of kind-k materials: the only ones a lane of kind k
+        # reads, and only those lanes keep the result
+        return texture_ids(nmod_tex, np.asarray(scene.nmod_kinds) == k)
+
+    n_new = n
+    if 1 in kinds_present:  # normal map
+        c = resolve_color(scene, tables, f[:, 1:4], tex, uv, ids=ids(1))
+        local = normalize(2.0 * c - 1.0)
+        o_n = t * local[:, 0:1] + b * local[:, 1:2] + n * local[:, 2:3]
+        nm = normalize(n + (o_n - n) * strength[..., None])
+        n_new = torch.where((kind == 1)[..., None], nm, n_new)
+    if 2 in kinds_present:  # bump map: forward differences, delta 1e-3
+        step_u = device_const((1e-3, 0.0), torch.float32, uv.device)
+        step_v = device_const((0.0, 1e-3), torch.float32, uv.device)
+        i2 = ids(2)
+        h0 = eval_texture_stack(scene, tables, tex, uv, ids=i2)[:, 0]
+        hx = eval_texture_stack(scene, tables, tex, uv + step_u,
+                                ids=i2)[:, 0]
+        hy = eval_texture_stack(scene, tables, tex, uv + step_v,
+                                ids=i2)[:, 0]
+        delta = float(np.float32(1e-3))
+        dx = (hx - h0) / delta
+        dy = (hy - h0) / delta
+        nb = normalize(n - (t * dx[..., None] + b * dy[..., None])
+                       * strength[..., None])
+        n_new = torch.where((kind == 2)[..., None], nb, n_new)
+    if 3 in kinds_present:  # the normal (and tangent) set
+        n_new = torch.where((kind == 3)[..., None], normalize(f[:, 1:4]),
+                            n_new)
+    if 4 in kinds_present:  # a PExpr normal
+        # the expression sees the full shading context, so that bump() and
+        # ensure_valid_reflection() read the real N, Nx, Ny, Ng and V
+        from ignis_tpu_torch.render.integrator import _pexpr_ctx
+        ctx = _pexpr_ctx(tables, surf,
+                         surf["point"] - d if org is None else org, d)
+        c = eval_texture_stack(scene, tables, tex, uv, ctx, ids=ids(4))
+        n_new = torch.where((kind == 4)[..., None], normalize(c), n_new)
+
     # reject perturbations that put the view below the shading horizon
     ok = dot(-d, n_new) > FLT_EPS
     n_new = torch.where(ok[..., None], n_new, n)
 
     t_new = normalize(_align_rotation_apply(n, n_new, t))
     b_new = normalize(_align_rotation_apply(n, n_new, b))
-    sel = is3 & (f[:, 7] > 0.5)[..., None]
-    tan = normalize(f[:, 4:7])
+    if 3 in kinds_present:
+        sel = ((kind == 3) & (f[:, 7] > 0.5))[..., None]
+        tan = normalize(f[:, 4:7])
+        t_new = torch.where(sel, tan, t_new)
+        b_new = torch.where(sel, normalize(cross(tan, n_new)), b_new)
     surf["n"] = n_new
-    surf["t"] = torch.where(sel, tan, t_new)
-    surf["b"] = torch.where(sel, normalize(cross(tan, n_new)), b_new)
+    surf["t"] = t_new
+    surf["b"] = b_new
     return surf
 
 
@@ -94,9 +133,8 @@ def prepare_surface(scene, tables, surf, d, org=None):
 
     Returns (mat_type, specular_mask); adds colors and scalars to surf in
     place, and for two-lobe scenes colors_b, scalars_b, mix_k, mix_kind and
-    mat_type_b."""
-    _check(scene)
-    apply_normal_mod(scene, tables, surf, d)
+    mat_type_b.  `org` (the rays' origins) is read by PExpr normals."""
+    apply_normal_mod(scene, tables, surf, d, org)
     dev = d.device
     mat_id = surf["mat_id"].long()
     types = torch.as_tensor(scene.bsdf_types, dtype=torch.int32, device=dev)
@@ -112,12 +150,23 @@ def prepare_surface(scene, tables, surf, d, org=None):
     mat_type_b = types_b[mat_id]
     surf["mat_type_b"] = mat_type_b
     surf["mix_kind"] = tables["mat_mix_kind"][mat_id]
-    surf["colors_b"] = gather_rows(tables["mat_colors_b"], mat_id)
+    colors_b = gather_rows(tables["mat_colors_b"], mat_id)
+    if scene.textures:
+        colors_b = union.resolve_slots(scene, tables, colors_b, "mat_tex_b",
+                                       mat_id, surf["tex"])
+    surf["colors_b"] = colors_b
     surf["scalars_b"] = gather_rows(tables["mat_scalars_b"], mat_id)
 
-    # mix weight k (the weight of lobe B), then the cutoff
+    # mix weight k (the weight of lobe B), optionally textured, then the
+    # cutoff
     wf = tables["mat_wrap_f"][mat_id]
     k = wf[:, 0]
+    wrap_ids = texture_ids(scene.tables["mat_wrap_tex"])
+    if wrap_ids:
+        ktex = resolve_color(scene, tables, k[..., None].repeat(1, 3),
+                             tables["mat_wrap_tex"][mat_id], surf["tex"],
+                             ids=wrap_ids)
+        k = ktex[:, 0]
     cut = wf[:, 1]
     k = torch.where(cut >= 0.0, torch.where(k < cut, torch.zeros_like(k),
                                             torch.ones_like(k)), k)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ignis_tpu_torch.bsdf import microfacet as mf
@@ -92,13 +93,32 @@ def bsdf_specular_mask(bsdf_types, mat_type):
 
 
 def material_params(scene, tables, surf):
-    """Per-lane material colors (N, 4, 3) and scalars (N, 16)."""
-    if scene.textures:
-        raise NotImplementedError(
-            "textured material slots are not ported to ignis_tpu_torch yet")
+    """Per-lane material colors (N, 4, 3) and scalars (N, 16), the textured
+    color slots resolved at the lanes' uv."""
     mat_id = surf["mat_id"]
-    return (gather_rows(tables["mat_colors"], mat_id),
-            gather_rows(tables["mat_scalars"], mat_id))
+    colors = gather_rows(tables["mat_colors"], mat_id)
+    scalars = gather_rows(tables["mat_scalars"], mat_id)
+    if scene.textures:
+        colors = resolve_slots(scene, tables, colors, "mat_tex", mat_id,
+                               surf["tex"])
+    return colors, scalars
+
+
+def resolve_slots(scene, tables, colors, key, mat_id, uv):
+    """`colors` (N, S, 3) with each slot that some material textures (the
+    compiled `scene.tables[key]`, (M, S)) resolved per lane."""
+    from ignis_tpu_torch.texture.eval import resolve_color, texture_ids
+    slots_np = np.asarray(scene.tables[key])
+    if not (slots_np >= 0).any():
+        return colors
+    tex_ids = gather_rows(tables[key], mat_id)
+    cols = list(colors.unbind(1))
+    for slot in range(slots_np.shape[1]):
+        ids = texture_ids(slots_np[:, slot])
+        if ids:
+            cols[slot] = resolve_color(scene, tables, cols[slot],
+                                       tex_ids[:, slot], uv, ids=ids)
+    return torch.stack(cols, dim=1)
 
 
 # ------------------------------------------------------------------ diffuse

@@ -49,6 +49,9 @@ def params_from_numpy(tables, keys, device):
     """`tables_from_numpy`, with the tables named in `keys` made float32
     leaf tensors with `requires_grad=True`: the parameters of
     `trace_wave(differentiable=True)` and of `parallel.sharding.train_step`.
+    Any float table can be one: material and light rows, an image texture
+    (`tex{i}_img`, (H, W, 3)) or the registry (`params`), which textures and
+    PExpr expressions read at shading time.
 
         tables = params_from_numpy(scene.tables, ("mat_colors",), "cuda")
         trace_wave(scene, tables, x, y, 0, 0, 0, 0,

@@ -162,10 +162,32 @@ def transform_normal(nm, n):
 
 
 @functools.lru_cache(maxsize=None)
+def device_const(x, dtype, device):
+    """A tensor of `x` (a number or nested tuples) on `device`, made once: a
+    Python number given to `torch.where` is made on the device anew (a
+    launch) at every call."""
+    return torch.tensor(x, dtype=dtype, device=device)
+
+
 def device_scalar(x, device):
-    """A 0-d float32 tensor on `device`, made once: a Python number given to
-    `torch.where` is made on the device anew (a launch) at every call."""
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """A 0-d float32 `device_const`."""
+    return device_const(x, torch.float32, device)
+
+
+_I32_MAX = 2147483647
+_F32_BELOW_2_31 = 2147483520.0  # the largest float32 below 2^31
+
+
+def to_int32(x):
+    """float -> int32 as XLA converts: NaN -> 0, truncation toward zero,
+    saturating at the int32 range (a plain `.to(torch.int32)` is undefined
+    outside it and gives -2^31 on the CPU for NaN and +-inf alike)."""
+    xs = torch.nan_to_num(x, nan=0.0, posinf=_F32_BELOW_2_31,
+                          neginf=-2147483648.0)
+    xs = torch.clamp(xs, -2147483648.0, _F32_BELOW_2_31)
+    return torch.where(x >= 2147483648.0,
+                       device_const(_I32_MAX, torch.int32, x.device),
+                       xs.to(torch.int32))
 
 
 @functools.lru_cache(maxsize=None)

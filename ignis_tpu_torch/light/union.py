@@ -1,8 +1,8 @@
 """Batched light union: selection, direct sampling, pdfs and emission.
 
 Counterpart of ignis_tpu/light/union.py for point, plane-area, mesh-area,
-analytic-sphere and constant environment lights with the uniform light
-selector.  Every branch
+analytic-sphere and constant or textured (uniformly sampled) environment
+lights with the uniform light selector.  Every branch
 reports its pdf both raw (`pdf_value`) and converted to solid angle
 (`pdf_solid`), which is what the path technique consumes.
 
@@ -11,7 +11,8 @@ Light parameter rows live in tables["light_data"] (N_lights, 32):
   AREA_PLANE:  origin[0:3], x_axis[3:6], y_axis[6:9], normal[9:12], area[12],
                radiance[13:16]
   AREA_MESH:   radiance[0:3], tri_offset[3], tri_count[4], entity[5]
-  ENV:         radiance*scale[0:3], transform3x3[3:12]
+  ENV:         radiance*scale[0:3] (the scale alone when textured),
+               transform3x3[3:12]
   AREA_SPHERE: radiance[0:3], radius[3], world center[4:7], entity[7],
                total area 4*pi*r^2 [8]
 """
@@ -47,11 +48,12 @@ def _check_ported(scene):
             raise NotImplementedError(
                 f"light type id {l.type} is not ported to ignis_tpu_torch "
                 "yet")
-        if l.type == LIGHT_ENV and (getattr(l, "tex", -1) >= 0
-                                    or getattr(l, "sky", None) is not None):
+        # a textured env without its CDF is LIGHT_ENV with `tex` set: in
+        # the slice; the CDF variant is a type of its own
+        if l.type == LIGHT_ENV and getattr(l, "sky", None) is not None:
             raise NotImplementedError(
-                "textured / sky environment lights are not ported to "
-                "ignis_tpu_torch yet")
+                "sky environment lights are not ported to ignis_tpu_torch "
+                "yet")
 
 
 def _safe_len(v):
@@ -273,11 +275,39 @@ def _sample_area_sphere(data, from_point, is_entering, u1, u2):
                 pdf_solid=pdfv * safe_div(d2, torch.abs(cos)))
 
 
-def _sample_env(data, from_point, scene_radius, u1, u2):
-    """Constant environment: equal-area sphere sampling."""
+def _switch_env_up(v):
+    """(x, y, z) <-> (x, z, y)."""
+    return torch.stack([v[..., 0], v[..., 2], v[..., 1]], dim=-1)
+
+
+def _map_env_uv(d):
+    """Z-up direction -> env uv, with (0.5, 0.5) the Y-up direction."""
+    theta = torch.acos(torch.clamp(d[..., 2], -1.0, 1.0))
+    phi = torch.atan2(d[..., 1], d[..., 0])
+    phi = torch.where(phi < 0.0, phi + 2.0 * PI, phi)
+    v = theta / PI
+    u = phi / (2.0 * PI)
+    return torch.stack([torch.remainder(u + 0.25, 1.0), 1.0 - v], dim=-1)
+
+
+def _env_radiance(scene, tables, info, data, d):
+    """scale * radiance seen along world directions `d`: the texture at the
+    light-space direction's uv for a textured env, else the constant."""
+    base = data[0:3]
+    if getattr(info, "tex", -1) >= 0:
+        from ignis_tpu_torch.texture.eval import eval_one
+        trans = data[3:12].reshape(3, 3)
+        uv = _map_env_uv(_switch_env_up(d @ trans.T))
+        tex = eval_one(scene, tables, scene.textures[info.tex], uv)
+        return tex * base  # base holds the scale for a textured env
+    return torch.broadcast_to(base, d.shape)
+
+
+def _sample_env(scene, tables, info, data, from_point, scene_radius, u1, u2):
+    """Environment light: equal-area sphere sampling."""
     d = equal_area_square_to_sphere(u1, u2)
     pdf = torch.full_like(u1, equal_area_sphere_pdf())
-    radiance = torch.broadcast_to(data[0:3], d.shape)
+    radiance = _env_radiance(scene, tables, info, data, d)
     intensity = radiance * safe_div(1.0, pdf)[..., None]
     return dict(dir=d, dist=torch.full_like(u1, scene_radius),
                 cos=torch.ones_like(u1),
@@ -328,7 +358,8 @@ def sample_light_direct(scene, tables, light_idx, from_point, is_entering,
             for lid, info in enumerate(scene.lights):
                 if info.type != t:
                     continue
-                r = _sample_env(tables["light_data"][lid], from_point,
+                r = _sample_env(scene, tables, info,
+                                tables["light_data"][lid], from_point,
                                 scene_radius, us[0], us[1])
                 m = light_idx == lid
                 _merge(out, r, m)
@@ -409,7 +440,7 @@ def env_emission_and_pdf(scene, tables, light_id, ray_dir):
             f"infinite light type id {info.type} is not ported to "
             "ignis_tpu_torch yet")
     data = tables["light_data"][light_id]
-    color = torch.broadcast_to(data[0:3], ray_dir.shape)
+    color = _env_radiance(scene, tables, info, data, ray_dir)
     pdf = torch.full(ray_dir.shape[:-1], equal_area_sphere_pdf(),
                      dtype=torch.float32, device=ray_dir.device)
     return color, pdf

@@ -42,8 +42,9 @@ from ignis_tpu_torch.bsdf import (
 from ignis_tpu_torch.core import rng
 from ignis_tpu_torch.core.dgather import gather_rows
 from ignis_tpu_torch.core.vec import (
-    FLT_EPS, FLT_MAX, cross, dot, length, normalize, orthonormal_basis,
-    safe_div, transform_normal, transform_point, transform_vector,
+    FLT_EPS, FLT_MAX, cross, device_scalar, dot, length, normalize,
+    orthonormal_basis, safe_div, transform_normal, transform_point,
+    transform_vector,
 )
 from ignis_tpu_torch.light import (
     env_emission_and_pdf, light_pdf_direct_solid, light_select_pdf,
@@ -290,6 +291,30 @@ def _surface_at(tables, prim, org, direction, t, u, v):
                 inv_area=inv_area, tex=tex, t=tb, b=bb,
                 ent=ent, mat_id=mat_id, light_id=light_id,
                 prim_coords=torch.stack([u, v], dim=-1))
+
+
+def _pexpr_ctx(tables, surf, org, d):
+    """Lane context of PExpr-valued properties: the surface's uv, position
+    (world and normalised object space), normals, view and entity."""
+    ent = surf["ent"].long()
+    lm = gather_rows(tables["ent_local_mat"], ent)  # (N, 3, 4)
+    lp = torch.einsum("nij,nj->ni", lm[:, :, :3], surf["point"]) + lm[:, :, 3]
+    lo = gather_rows(tables["ent_lbbox_min"], ent)
+    hi = gather_rows(tables["ent_lbbox_max"], ent)
+    ext = hi - lo
+    flat = ext == 0
+    np_ = torch.where(flat, device_scalar(0.0, ext.device),
+                      (lp - lo) / torch.where(flat, device_scalar(
+                          1.0, ext.device), ext))
+    tex = surf["tex"]
+    return dict(uv=tex,
+                uvw=torch.cat([tex, torch.zeros(tex.shape[:-1] + (1,),
+                                                dtype=torch.float32,
+                                                device=tex.device)], dim=-1),
+                prim_coords=surf["prim_coords"], P=surf["point"], Np=np_,
+                V=-d, Ro=org, N=surf["n"], Ng=surf["ng"], Nx=surf["t"],
+                Ny=surf["b"], frontside=surf["is_entering"],
+                entity_id=surf["ent"])
 
 
 def _count(mask):

@@ -7,9 +7,9 @@ entities keeps one local copy plus transform records, `CompiledScene.instanced`)
 analytic sphere records (`sph_rows`), array-of-struct material/light parameter
 tables, and a static `CompiledScene` the integrator specialises on.
 
-Branches whose helpers are not ported yet (textures / PExpr strings, measured
-BSDFs, heterogeneous media, importance-sampled and sky environment lights,
-the light hierarchy, the halton sampler) raise `NotImplementedError` when a
+Branches whose helpers are not ported yet (measured BSDFs, heterogeneous
+media, importance-sampled and sky environment lights, the light hierarchy,
+the halton sampler) raise `NotImplementedError` when a
 scene reaches them; `check_slice` rejects what compiles but the integrator
 does not cover yet.  Nothing is silently skipped or approximated.
 """
@@ -90,9 +90,8 @@ def _color(v, default=(0.0, 0.0, 0.0)):
             a = np.full(3, a[0], dtype=np.float32)
         return a, -1
     if isinstance(v, str):
-        raise NotImplementedError(
-            f"texture / PExpr-valued color property {v!r} is not ported "
-            "to ignis_tpu_torch yet")
+        # texture/PExpr reference, resolved by the texture system
+        return np.asarray(default, dtype=np.float32), v
     raise SceneError(f"Cannot interpret color property {v!r}")
 
 
@@ -105,9 +104,23 @@ def _number(v, default=0.0):
     if isinstance(v, (int, float)):
         return float(v), -1
     if isinstance(v, str):
-        raise NotImplementedError(
-            f"PExpr / texture-valued number property {v!r} is not ported "
-            "to ignis_tpu_torch yet")
+        # constant-fold the PExpr with the scene parameters on CPU tensors;
+        # whatever fails keeps the reference (as the JAX package does)
+        try:
+            import torch
+            from ignis_tpu_torch.texture.pexpr import eval_pexpr
+
+            class _S:
+                textures = []
+                parameter_values = _PARAM_VALUES
+            kind, val = eval_pexpr(_S(), {}, v,
+                                   {"uv": torch.zeros((1, 2))})
+            arr = np.asarray(val.detach().cpu().numpy())
+            if arr.size >= 1:
+                return float(arr.reshape(-1)[0]), -1
+        except Exception:
+            pass
+        return float(default), v
     raise SceneError(f"Cannot interpret number property {v!r}")
 
 
@@ -1492,8 +1505,9 @@ _SLICE_BSDFS = (BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PHONG,
                 BSDF_PLASTIC, BSDF_PRINCIPLED, BSDF_PASSTHROUGH,
                 BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC,
                 BSDF_ROUGH_PLASTIC)
-# normal modifier kinds: 0 none, 3 the constant normal (and tangent) set
-_SLICE_NMODS = (0, 3)
+# normal modifier kinds: 0 none, 1 normal map, 2 bump map, 3 the constant
+# normal (and tangent) set, 4 a PExpr normal
+_SLICE_NMODS = (0, 1, 2, 3, 4)
 _SLICE_LIGHTS = (LIGHT_POINT, LIGHT_AREA_PLANE, LIGHT_AREA_MESH, LIGHT_ENV,
                  LIGHT_AREA_SPHERE)
 
@@ -1519,18 +1533,16 @@ def check_slice(cs: CompiledScene) -> None:
             no(f"BSDF type id {t if t not in _SLICE_BSDFS else tb} "
                f"(material '{name}')")
     if any(k not in _SLICE_NMODS for k in cs.nmod_kinds):
-        no("normal modifiers other than a constant normal "
-           "(bumpmap/normalmap/PExpr transform)")
-    if cs.textures:
-        no("textures / PExpr expressions")
+        no(f"normal modifier kinds {sorted(set(cs.nmod_kinds))}")
     if cs.media:
         no("participating media")
     for l in cs.lights:
         if l.type not in _SLICE_LIGHTS:
             no(f"light type id {l.type} (light '{l.name}')")
-        if l.type == LIGHT_ENV and (l.tex >= 0
-                                    or getattr(l, "sky", None) is not None):
-            no(f"textured / sky environment light '{l.name}'")
+        # a textured env is in the slice without its CDF (the CDF variant
+        # has its own light type and raises in the compiler)
+        if l.type == LIGHT_ENV and getattr(l, "sky", None) is not None:
+            no(f"sky environment light '{l.name}'")
     fl = np.asarray(cs.tables["ent_flags"])
     if (((fl & 0x1) != 0) != ((fl & 0x4) != 0)).any():
         no("camera_visible != bounce_visible entity flags")
@@ -1548,8 +1560,29 @@ def _bake_texture(textures, img_tables, tid, bw=1024, bh=512):
 
     Plain image textures use their own resolution; everything else evaluates
     on a bw x bh uv grid."""
-    raise NotImplementedError(
-        "texture baking is not ported to ignis_tpu_torch yet")
+    import torch
+    from ignis_tpu_torch.texture.eval import eval_one
+    from ignis_tpu_torch.texture.loader import TEX_IMAGE
+    tex = textures[tid]
+    if tex["type"] == TEX_IMAGE:
+        return np.asarray(img_tables[tex["img_key"]])
+
+    class _Stub:
+        pass
+    stub = _Stub()
+    stub.textures = textures
+    us = (np.arange(bw) + 0.5) / bw
+    vs = (np.arange(bh) + 0.5) / bh
+    uu, vv = np.meshgrid(us, vs)
+    uv = torch.from_numpy(np.stack([uu.reshape(-1), vv.reshape(-1)],
+                                   axis=-1).astype(np.float32))
+    tabs = {k: torch.from_numpy(np.asarray(a, np.float32))
+            for k, a in img_tables.items()}
+    out = eval_one(stub, tabs, tex, uv).detach().numpy().astype(np.float32)
+    # constant textures evaluate to a broadcastable shape ((3,) or (N, 1))
+    # rather than (N, 3): broadcast before the grid reshape
+    out = np.broadcast_to(np.atleast_2d(out), (bh * bw, 3))
+    return out.reshape(bh, bw, 3)
 
 
 def _detect_plane(world: TriMesh):

@@ -4,7 +4,8 @@
 package's bench scripts build (`__graft_entry__._demo_scene` and
 `_big_bench.make_scene`); those scripts import JAX, so the dictionaries are
 kept here.  `instanced_scene` is the deployment instancing exists for: many
-copies of one mesh.
+copies of one mesh.  `materials_scene` and `textured_scene` put the port's
+BSDFs and textures in the demo's box.
 """
 
 from __future__ import annotations
@@ -116,6 +117,129 @@ def materials_scene():
         {"type": "point", "name": "lamp", "position": [0.1, 0.55, -0.1],
          "intensity": [2, 2, 2]},
         {"type": "env", "name": "env", "radiance": [0.1, 0.1, 0.15]},
+    ]
+    return scene
+
+
+def _textured_images(dirpath, seed):
+    """The EXR images of `textured_scene`, made from a numpy seed: an albedo
+    (1024 x 1024), a tangent-space normal map (256 x 256) and an
+    environment (512 x 256).  Returns their paths."""
+    import os
+
+    from ignis_tpu_torch.utils.exr import write_exr
+    rng = np.random.default_rng(seed)
+    # albedo: smooth colored waves over coarse random cells
+    n = 1024
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) / n
+    cells = rng.uniform(0.15, 0.9, (16, 16, 3)).astype(np.float32)
+    cell = cells[(yy * 16).astype(int), (xx * 16).astype(int)]
+    waves = 0.5 + 0.5 * np.sin(2 * np.pi * np.stack(
+        [3 * xx + yy, 5 * yy, 2 * (xx - yy)], -1)).astype(np.float32)
+    albedo = (0.6 * cell + 0.4 * waves).astype(np.float32)
+    # normal map: random slopes of a few bumps, encoded as (n + 1) / 2
+    m = 256
+    yy, xx = np.mgrid[0:m, 0:m].astype(np.float32) / m
+    sx = np.zeros((m, m), np.float32)
+    sy = np.zeros((m, m), np.float32)
+    for cx, cy, r in rng.uniform((0, 0, 0.05), (1, 1, 0.2), (12, 3)):
+        dx, dy = xx - cx, yy - cy
+        g = np.exp(-(dx * dx + dy * dy) / (r * r))
+        sx += (dx / r) * g
+        sy += (dy / r) * g
+    nrm = np.stack([sx, sy, np.ones_like(sx)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    normals = (0.5 * (nrm + 1.0)).astype(np.float32)
+    # environment: a blue-to-white sky over a dark ground and a warm sun
+    ew, eh = 512, 256
+    v = (np.arange(eh, dtype=np.float32) + 0.5) / eh
+    u = (np.arange(ew, dtype=np.float32) + 0.5) / ew
+    vv, uu = np.meshgrid(v, u, indexing="ij")
+    sky = np.where(vv[..., None] > 0.5,
+                   np.stack([0.3 + 0.5 * vv, 0.45 + 0.4 * vv,
+                             0.9 + 0.0 * vv], -1),
+                   np.stack([0.1 + 0.0 * vv] * 3, -1))
+    sun = np.exp(-((uu - 0.3) ** 2 + (vv - 0.8) ** 2) / 0.002)
+    sky = (sky + sun[..., None] * np.float32([8.0, 6.0, 3.5])
+           + rng.uniform(0, 0.02, (eh, ew, 3))).astype(np.float32)
+    paths = {}
+    for name, img in (("albedo", albedo), ("normals", normals),
+                      ("sky", sky)):
+        paths[name] = os.path.join(str(dirpath), f"{name}.exr")
+        write_exr(paths[name], img)
+    return paths
+
+
+def textured_scene(dirpath, seed=5):
+    """`materials_scene()`'s box with textures on every kind of slot the
+    port reads them from: a diffuse wall under a bilinear, repeat-wrapped
+    1024 x 1024 image; a checkerboard whose scale and colors are registry
+    `parameters`, as the weight of a blend; brick and fbm noise textures; a
+    plastic whose reflectance is a PExpr mixing a texture call, `noise`,
+    `hsvtorgb` and `lookup`; a normal map from a second, linear image; a bump
+    map from the noise texture; a `transform` whose normal is a PExpr calling
+    `bump(...)` and `ensure_valid_reflection(...)`; the demo's area light
+    and an environment whose radiance is a third image, sampled uniformly
+    (`"cdf": false`).  The images are written into `dirpath` as EXR, made
+    from the numpy `seed`.  Depth 6, 434 triangles: the Baldwin-Weber tables
+    serve it."""
+    paths = _textured_images(dirpath, seed)
+    scene = materials_scene()
+    scene["parameters"] = [
+        {"type": "number", "name": "p_scale", "value": 6},
+        {"type": "color", "name": "p_col0", "value": [0.1, 0.1, 0.12]},
+        {"type": "color", "name": "p_col1", "value": [0.9, 0.85, 0.8]},
+    ]
+    scene["textures"] = [
+        {"type": "image", "name": "albedo", "filename": paths["albedo"],
+         "filter_type": "bilinear", "wrap_mode": "repeat"},
+        {"type": "image", "name": "normals", "filename": paths["normals"],
+         "filter_type": "bilinear", "linear": True},
+        {"type": "image", "name": "sky", "filename": paths["sky"],
+         "filter_type": "bilinear"},
+        {"type": "checkerboard", "name": "checker", "scale_x": "p_scale",
+         "scale_y": "p_scale", "color0": "p_col0", "color1": "p_col1"},
+        {"type": "brick", "name": "bricks", "color0": [0.25, 0.25, 0.25],
+         "color1": [0.7, 0.3, 0.2], "scale_x": 4, "scale_y": 8},
+        {"type": "fbm", "name": "clouds", "scale_x": 6, "scale_y": 6,
+         "color": [0.9, 0.9, 0.9], "seed": 3},
+    ]
+    glaze = ("mix(bricks(uv * 2).rgb, hsvtorgb(color(lookup('linear', false, "
+             "noise(uv * 8), vec2(0, 0.05), vec2(1, 0.6)), 0.6, 0.8)).rgb, "
+             "0.5)")
+    relief = ("ensure_valid_reflection(Ng, V, bump(N, Nx, Ny, 0.2, "
+              "noise(uv * 12) - 0.5, noise(uv * 12 + 7.3) - 0.5))")
+    scene["bsdfs"] = [
+        {"type": "diffuse", "name": "white", "reflectance": [0.8, 0.8, 0.8]},
+        {"type": "diffuse", "name": "albedo_wall", "reflectance": "albedo"},
+        {"type": "diffuse", "name": "brick_wall", "reflectance": "bricks"},
+        {"type": "normalmap", "name": "mapped", "bsdf": "brick_wall",
+         "map": "normals", "strength": 0.8},
+        {"type": "diffuse", "name": "grey", "reflectance": [0.6, 0.6, 0.7]},
+        {"type": "bumpmap", "name": "bumped", "bsdf": "grey",
+         "map": "clouds", "strength": 0.5},
+        {"type": "plastic", "name": "glaze", "diffuse_reflectance": glaze},
+        {"type": "roughconductor", "name": "brushed", "material": "gold",
+         "roughness": 0.25},
+        {"type": "blend", "name": "checkered", "first": "white",
+         "second": "brushed", "weight": "checker"},
+        {"type": "roughplastic", "name": "cloudy",
+         "diffuse_reflectance": "clouds", "roughness": 0.3},
+        {"type": "transform", "name": "relief", "bsdf": "cloudy",
+         "normal": relief},
+        {"type": "principled", "name": "painted", "base_color": "albedo",
+         "roughness": 0.4},
+    ]
+    mats = dict(light="white", floor="checkered", back="albedo_wall",
+                box="glaze", ball="relief", ball2="painted", left="mapped",
+                right="bumped", block="brick_wall")
+    scene["entities"] = [dict(name=k, shape=k, bsdf=v)
+                         for k, v in mats.items()]
+    scene["lights"] = [
+        {"type": "area", "name": "light", "entity": "light",
+         "radiance": [20, 20, 20]},
+        {"type": "env", "name": "env", "radiance": "sky", "scale": 0.5,
+         "cdf": False},
     ]
     return scene
 

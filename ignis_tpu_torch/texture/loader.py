@@ -44,8 +44,8 @@ def load_image_rgb(path: str | Path, linear: bool = False) -> np.ndarray:
     path = Path(path)
     ext = path.suffix.lower()
     if ext == ".exr":
-        raise NotImplementedError(
-            "EXR image textures are not ported to ignis_tpu_torch yet")
+        from ignis_tpu_torch.utils.exr import read_exr
+        img = read_exr(path)
     elif ext == ".hdr":
         img = _load_hdr(path)
     else:

@@ -2,12 +2,13 @@
 """Where a `Runtime.step` of the PyTorch/CUDA port spends its time.
 
     python3 scripts/torch_profile_step.py \
-        [demo|big|both|instanced|sweep|materials|all]
+        [demo|big|both|instanced|sweep|materials|textured|all]
 
 `both` is demo and big; `instanced` is the 1024-instance scene, `sweep` the
 32,002-triangle scene with un-accelerated tables, `materials` the demo box
-with the rough, plastic, phong, principled and two-lobe BSDFs; `all` is the
-five.  Every
+with the rough, plastic, phong, principled and two-lobe BSDFs, `textured` the
+same box with image, checkerboard, brick, noise and PExpr textures (its
+images written under `build/textured_scene/`); `all` is the six.  Every
 scene renders at 512x512.  Runs one warm-up step and then profiles one step
 of the scene(s) with `torch.profiler` (CPU + CUDA activities) and prints, per
 scene, one JSON line: the step's wall time (host clock closed by a
@@ -91,9 +92,10 @@ def main():
     from ignis_tpu_torch.api import Runtime
     from ignis_tpu_torch.scenes import (
         big_scene, demo_scene, instanced_scene, materials_scene,
+        textured_scene,
     )
     if which not in ("demo", "big", "both", "instanced", "sweep",
-                     "materials", "all"):
+                     "materials", "textured", "all"):
         print(f"unknown scene '{which}'", file=sys.stderr)
         return 2
     if which in ("demo", "both", "all"):
@@ -112,6 +114,12 @@ def main():
     if which in ("materials", "all"):
         profile_step("materials",
                      Runtime(materials_scene(), width=512, height=512), 1)
+    if which in ("textured", "all"):
+        tex_dir = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "build", "textured_scene")
+        os.makedirs(tex_dir, exist_ok=True)
+        profile_step("textured", Runtime(textured_scene(tex_dir), width=512,
+                                         height=512), 1)
     return 0
 
 

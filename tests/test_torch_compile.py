@@ -21,7 +21,7 @@ from ignis_tpu_torch.convert import (
 )
 from ignis_tpu_torch.scene.compile import check_slice
 from ignis_tpu_torch.scene.compile import load_and_compile as t_compile
-from ignis_tpu_torch.scenes import big_scene, demo_scene
+from ignis_tpu_torch.scenes import big_scene, demo_scene, textured_scene
 
 
 def _graft_demo():
@@ -55,8 +55,52 @@ def lights_scene():
     return s
 
 
+def param_scene(_dir):
+    from test_parameters import _param_scene
+    return _param_scene()
+
+
+def features_scene(d):
+    """Every texture kind on the flat scene at once: textured slots of both
+    lobes, a textured blend weight, normal-modifier kinds 1, 2 and 4 on
+    three materials, and a textured uniform env."""
+    import test_torch_textured_render as r
+    s = copy.deepcopy(create_flat_scene())
+    sky = r._sky(d)
+    s["textures"] = [r.CHECKER, r.CLOUDS, sky]
+    s["bsdfs"] = [
+        {"type": "diffuse", "name": "a", "reflectance": "clouds"},
+        {"type": "roughconductor", "name": "b", "roughness": 0.3,
+         "specular_reflectance": "checker"},
+        {"type": "blend", "name": "ground", "first": "a", "second": "b",
+         "weight": "checker"},
+        {"type": "normalmap", "name": "nm", "bsdf": "a", "map": "checker"},
+        {"type": "bumpmap", "name": "bm", "bsdf": "a", "map": "clouds"},
+        {"type": "transform", "name": "pn", "bsdf": "a",
+         "normal": r.RELIEF},
+    ]
+    s["shapes"] += [
+        {"type": "rectangle", "name": f"q{i}", "width": 0.5, "height": 0.5,
+         "transform": {"translate": [0.6 * i - 0.6, 0, -0.3]}}
+        for i in range(3)]
+    s["entities"] += [{"name": f"q{i}", "shape": f"q{i}", "bsdf": m}
+                      for i, m in enumerate(("nm", "bm", "pn"))]
+    s["lights"] = [{"type": "env", "name": "sky", "radiance": "sky",
+                    "cdf": False}]
+    return s
+
+
 SCENES = {"demo": demo_scene, "flat": create_flat_scene, "ico": ico_scene,
           "dof": dof_scene, "lights": lights_scene}
+# scenes that write their images into a directory first
+TEXTURED = {"textured": textured_scene, "parameters": param_scene,
+            "features": features_scene}
+
+
+def _scene(name, tmp_path):
+    if name in TEXTURED:
+        return TEXTURED[name](tmp_path)
+    return SCENES[name]()
 
 
 def _assert_tables_equal(a, b, keys=None):
@@ -75,9 +119,10 @@ def test_scene_copies_equal_the_originals():
     assert big_scene(2, 3) == _big_bench.make_scene(2, 3)
 
 
-@pytest.mark.parametrize("name", sorted(SCENES))
-def test_compiled_tables_equal(name):
-    a, b = j_compile(SCENES[name](), 32, 32), t_compile(SCENES[name](), 32, 32)
+@pytest.mark.parametrize("name", sorted(SCENES) + sorted(TEXTURED))
+def test_compiled_tables_equal(name, tmp_path):
+    a = j_compile(_scene(name, tmp_path), 32, 32)
+    b = t_compile(_scene(name, tmp_path), 32, 32)
     check_slice(b)
     assert a.tables.keys() == b.tables.keys()
     _assert_tables_equal(a.tables, b.tables)
@@ -109,11 +154,12 @@ def test_type_constants_keep_their_values():
             assert getattr(jc, name) == getattr(tc, name), name
 
 
-@pytest.mark.parametrize("name", ["demo", "flat", "ico"])
-def test_runtime_tables_equal(name):
+@pytest.mark.parametrize("name", ["demo", "flat", "ico"] + sorted(TEXTURED))
+def test_runtime_tables_equal(name, tmp_path):
     """bw_tables / build_bvh / build_packet_bvh / pack_tri_shade as the two
-    Runtimes build them."""
-    scene = SCENES[name]()
+    Runtimes build them; for the textured scenes also the image tables
+    (`*_img`), `params`, `mat_tex*`, `mat_wrap_tex` and `mat_nmod_*`."""
+    scene = _scene(name, tmp_path)
     jrt = JRuntime(scene, width=16, height=16)
     jt = {k: np.asarray(v) for k, v in jrt.tables.items()}
     trt = tapi.Runtime(scene, width=16, height=16, device="cpu")
@@ -139,6 +185,13 @@ def test_runtime_tables_equal(name):
             build_pb_nodes(jt["pb_rows"]).view(np.int32))
     assert "tri_shade" in tt
     _assert_tables_equal(jt, tt, keys=set(tt) - {"pb_nodes", "bw_ctree"})
+    if name in TEXTURED:
+        held = {k for k in tt if k.endswith("_img") or k == "params"
+                or k.startswith(("mat_tex", "mat_wrap_tex", "mat_nmod_"))}
+        assert {"params", "mat_tex", "mat_tex_b", "mat_wrap_tex",
+                "mat_nmod_kind", "mat_nmod_f", "mat_nmod_tex"} <= held
+        assert any(k.endswith("_img") for k in held) or name == "parameters"
+        assert (tt["mat_tex"] >= 0).any()
 
 
 def test_pack_tri_shade_equal():
@@ -217,22 +270,6 @@ OUT_OF_SLICE = {
         film={"size": [8, 8], "sampler": "mjitt"}),
     "camera orthogonal": lambda: _flat_with(
         camera=dict(create_flat_scene()["camera"], type="orthogonal")),
-    "bsdf texture color": lambda: _flat_bsdf(
-        {"type": "diffuse", "reflectance": "checker"}),
-    "bsdf pexpr number": lambda: _flat_bsdf(
-        {"type": "dielectric", "int_ior": "1.2 + 0.3"}),
-    "bsdf blend textured weight": lambda: dict(_flat_plus("bsdfs", {
-        "type": "blend", "name": "mixed", "first": "ground",
-        "second": "ground", "weight": "checker"}), textures=[
-        {"type": "checkerboard", "name": "checker"}]),
-    "bsdf normalmap texture": lambda: _flat_plus("bsdfs", {
-        "type": "normalmap", "name": "nm", "bsdf": "ground",
-        "map": "checker"}),
-    "bsdf transform pexpr normal": lambda: _flat_plus("bsdfs", {
-        "type": "transform", "name": "nm", "bsdf": "ground",
-        "normal": "vec3(0, 1, 0)"}),
-    "textures": lambda: _flat_with(textures=[
-        {"type": "checkerboard", "name": "checker"}]),
     "media": lambda: _flat_with(media=[
         {"type": "homogeneous", "name": "fog", "sigma_s": [1, 1, 1]}]),
     "light spot": lambda: _flat_with(lights=[
@@ -255,6 +292,11 @@ def _flat_material(*bsdfs):
     s = _flat_with(bsdfs=list(bsdfs[:-1]) + [dict(bsdfs[-1],
                                                   name="ground")])
     s["lights"] = [{"type": "env", "name": "e", "radiance": [1, 1, 1]}]
+    return s
+
+
+def _with_checker(s):
+    s["textures"] = [{"type": "checkerboard", "name": "checker"}]
     return s
 
 
@@ -288,6 +330,32 @@ MOVED_INTO_SLICE = {
         {"type": "diffuse", "name": "a"},
         {"type": "transform", "bsdf": "a", "normal": [0, 0.3, -1]}),
         lambda rt, g: rt.scene.nmod_kinds[g] == 3),
+    # the six texture cases: the scenes that named a texture ("checker")
+    # they did not define now define it, so that they render
+    "bsdf texture color": (lambda: _with_checker(_flat_material(
+        {"type": "diffuse", "reflectance": "checker"})),
+        lambda rt, g: rt.scene.tables["mat_tex"][g, 0] == 0),
+    "bsdf pexpr number": (lambda: _flat_material(
+        {"type": "dielectric", "int_ior": "1.2 + 0.3"}),
+        lambda rt, g: rt.scene.tables["mat_scalars"][g, 2]
+        == np.float32(1.2) + np.float32(0.3)),
+    "bsdf blend textured weight": (lambda: _with_checker(_flat_material(
+        {"type": "diffuse", "name": "a"},
+        {"type": "blend", "first": "a", "second": "a",
+         "weight": "checker"})),
+        lambda rt, g: rt.scene.tables["mat_wrap_tex"][g] == 0),
+    "bsdf normalmap texture": (lambda: _with_checker(_flat_material(
+        {"type": "diffuse", "name": "a"},
+        {"type": "normalmap", "bsdf": "a", "map": "checker"})),
+        lambda rt, g: rt.scene.nmod_kinds[g] == 1
+        and rt.scene.tables["mat_nmod_tex"][g] == 0),
+    "bsdf transform pexpr normal": (lambda: _flat_material(
+        {"type": "diffuse", "name": "a"},
+        {"type": "transform", "bsdf": "a", "normal": "vec3(0, 0.3, -1)"}),
+        lambda rt, g: rt.scene.nmod_kinds[g] == 4),
+    "textures": (lambda: _with_checker(_flat_material(
+        {"type": "diffuse"})),
+        lambda rt, g: [t["name"] for t in rt.scene.textures] == ["checker"]),
 }
 
 
@@ -317,13 +385,18 @@ def test_shadow_only_flags_stay_in_the_slice():
 
 
 def test_gltf_and_exr_raise():
+    """glTF scenes raise; EXR images are read (none / ZIPS / ZIP) and any
+    other compression raises, naming it."""
     from ignis_tpu_torch.scene.parser import load_scene_file
     from ignis_tpu_torch.texture.loader import load_image_rgb
+    from test_torch_textures import _zips_exr
     import tempfile, os
     with tempfile.TemporaryDirectory() as d:
         p = os.path.join(d, "a.gltf")
         open(p, "w").write("{}")
         with pytest.raises(NotImplementedError):
             load_scene_file(p)
-        with pytest.raises(NotImplementedError):
-            load_image_rgb(os.path.join(d, "a.exr"))
+        p = os.path.join(d, "a.exr")
+        _zips_exr(p, np.zeros((2, 2, 3), np.float32), comp=4)
+        with pytest.raises(NotImplementedError, match="PIZ"):
+            load_image_rgb(p)
