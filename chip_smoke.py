@@ -31,7 +31,15 @@ checkerboard, brick, noise and PExpr textures on color slots, a blend weight,
 normal, bump and PExpr normals and a uniformly sampled image environment)
 through `Runtime.step`, a registry change on its next frame, and the gradient
 of its summed differentiable render with respect to its albedo texels and
-its registry at 2^18 lanes.  Every phase prints one
+its registry at 2^18 lanes.  Last the light breadth (`lights`): a furnished
+room under a sun, a Hosek-Wilkie sky through a window and 256 spot lights
+under the light hierarchy (the packet-BVH kernels), and the demo box under
+an HDR environment sampled by its summed-area table and 64 point lights
+under the flux CDF (the Baldwin-Weber kernels), through `Runtime.step`, each
+held to its plain traversal; the hierarchy's pdfs, the CDF tables' sample /
+pdf agreement and CPU-vs-card light samples checked on the card; and the
+gradient of the room's differentiable render with respect to the light rows
+and the baked sky image.  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -63,6 +71,14 @@ FWDBWD_LANES = 1 << 19    # lanes of the gradient phase (`phase_fwdbwd`'s)
 GRAD_REL = 1e-4           # its gradient, kernels vs plain traversal
 TRAIN_STEPS, TRAIN_LR = 5, 0.5
 TEXTURED_LANES = 1 << 18  # lanes of the textured scene's gradient
+DAYLIGHT_LANES = 1 << 18  # lanes of the daylight room's gradient
+LIGHT_FILM = 128          # film of the lights' kernel-vs-plain renders
+HIER_POINTS = 4096        # points of the hierarchy's pdf checks
+CDF_DRAWS = 1 << 20       # draws of the CDF tables' sample / pdf check
+CDF_REL = 1e-5
+HIER_SUM_ABS = 1e-4
+HIER_PDF_REL = 1e-5
+DIR_ABS = 1e-5            # CPU vs card: sampled light directions
 # the path technique's clamp of each contribution in the `train` phase: a
 # few unclamped firefly lanes (up to 6,064 in a 512x512 render of the
 # materials scene on an H100, the JAX package's render the same there:
@@ -732,6 +748,8 @@ PATH_KERNELS = {
     "fwdbwd": ("bw_closest", "bw_any"),
     "train": ("bw_closest", "bw_any"),
     "textured": ("bw_closest", "bw_any"),
+    "daylight": ("packet_bvh_closest", "packet_bvh_any"),
+    "env": ("bw_closest", "bw_any"),
 }
 
 
@@ -774,9 +792,11 @@ def timed_steps(path, rt, steps, spi, wrappers):
         mean=float(img.mean()))
 
 
-def kernel_and_plain_means(path, rt, spi, patches, mean_kernel=None):
+def kernel_and_plain_means(path, rt, spi, patches, mean_kernel=None,
+                           max_rel=MEAN_REL):
     """Image mean with the kernels against the mean with `patches` ({name in
-    the integrator: plain version}) in their place, on `rt` at the same seed.
+    the integrator: plain version}) in their place, on `rt` at the same seed;
+    their relative difference must be at most `max_rel`.
     `mean_kernel`, when given, is a kernel render made elsewhere (a larger
     film of the same scene); else `rt` renders it too."""
     from ignis_tpu_torch.render import integrator
@@ -785,7 +805,7 @@ def kernel_and_plain_means(path, rt, spi, patches, mean_kernel=None):
     with mock.patch.multiple(integrator, **patches):
         mean_plain = render_mean(rt, spi)
     rel = abs(mean_kernel - mean_plain) / abs(mean_plain)
-    if rel > MEAN_REL:
+    if rel > max_rel:
         fail(f"{path}: kernel render mean {mean_kernel} vs plain-version "
              f"render {mean_plain}")
     return dict(mean_kernel=mean_kernel, mean_plain=mean_plain, rel_diff=rel,
@@ -839,13 +859,21 @@ def bw_plain(bw):
                                bw_any=bw.bw_any_plain)
 
 
-def fwdbwd(path, rt, n, wrappers, bw, keys, reps):
+def pb_plain(pb):
+    """The plain packet-BVH traversal patched into the integrator."""
+    from ignis_tpu_torch.render import integrator
+    return mock.patch.multiple(integrator,
+                               packet_bvh_closest=pb.packet_bvh_closest_plain,
+                               packet_bvh_any=pb.packet_bvh_any_plain)
+
+
+def fwdbwd(path, rt, n, wrappers, plain, keys, reps):
     """A gradient phase on `rt` at `n` lanes with respect to the tables of
     `keys`: launches per call, seconds per call over `reps` calls after a
     warm-up (host clock closed by a synchronise), their peak device memory,
     and the per-lane render (bit for bit) and each gradient held to those
-    taken with the plain traversal patched in: every launch of the phase is
-    `n` rays wide."""
+    taken with the plain traversal patched in (`plain()`, a context): every
+    launch of the phase is `n` rays wide."""
     x, y = lanes_over_film(n, rt.width, rt.tables[keys[0]].device)
     depth = min(rt.scene.technique.max_depth, 64)
     reset_counts(wrappers)
@@ -869,7 +897,7 @@ def fwdbwd(path, rt, n, wrappers, bw, keys, reps):
     dt = (time.perf_counter() - ta) / reps
     peak = torch.cuda.max_memory_allocated()
     launches = {f.__name__: f.launches for f in wrappers}
-    with bw_plain(bw):
+    with plain():
         color_plain, gp = grad_of_summed_render(rt, x, y, keys)
     lanes_equal = same_bits(path, color, color_plain)
     rels = {}
@@ -960,21 +988,207 @@ def train(rt, steps, lr, wrappers, bw):
                 launches=launches)
 
 
-def launches_per_iteration(rt, spi):
-    """Device kernels a wave iteration of one `rt.step`, counted by
-    `torch.profiler` (each CUDA kernel, memset or copy the step launched,
-    of any op).  The raw events are counted: `key_averages()` would turn
-    each of some 200,000 into a Python object first (a minute)."""
+def profiled_step(rt, spi):
+    """One `rt.step` under `torch.profiler`, counted from the raw events
+    (`key_averages()` would turn each of some 200,000 into a Python object
+    first, a minute): device kernels (memsets and copies included) a wave
+    iteration, their summed device time, the step's wall time (host clock
+    closed by a synchronise; the profiler's own cost included) and the
+    device's idle share, 1 - busy / wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     before = rt._dev_stats.cpu().numpy()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ta = time.perf_counter()
         rt.step(spi=spi)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ta
     after = rt._dev_stats.cpu().numpy()
     iters = int((after[0] + after[2]) - (before[0] + before[2]))
-    n = sum(1 for e in prof.profiler.kineto_results.events()
-            if e.device_type() != DeviceType.CPU)
-    return round(n / max(iters, 1), 1)
+    n, busy, trav = 0, 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            continue
+        n += 1
+        busy += e.duration_ns()
+        if any(k in e.name() for k in ("bw_kernel", "pbvh_kernel")):
+            trav += e.duration_ns()
+    return dict(launches_per_wave_iteration=round(n / max(iters, 1), 1),
+                profiled_wave_iterations=iters, device_launches=n,
+                device_busy_s=round(busy / 1e9, 4),
+                step_wall_profiled_s=round(wall, 4),
+                device_idle_share=round(1.0 - busy / 1e9 / wall, 4),
+                traversal_share_of_device=round(trav / max(busy, 1), 4))
+
+
+def room_points(n, seed, dev):
+    """`n` seeded points inside `daylight_scene()`'s room."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform((-2.9, 0.05, -3.9), (2.9, 2.85, 3.9), (n, 3))
+    return torch.from_numpy(p.astype(np.float32)).to(dev)
+
+
+def check_hierarchy(rt, n, seed):
+    """The light tree of `rt` on the card at `n` seeded points in the room:
+    the pdfs of all its lights sum to 1, and each sample's pdf is the
+    replay's pdf of its pick (the reference's hierarchy consistency test)."""
+    from ignis_tpu_torch.light.hierarchy import hierarchy_pdf, hierarchy_sample
+    tb, depth = rt.tables, rt.scene.lh_depth
+    dev = tb["lh_child"].device
+    pos = room_points(n, seed, dev)
+    nl = tb["lh_codes"].shape[0]
+    ids = torch.arange(nl, device=dev).repeat_interleave(n)
+    pdfs = hierarchy_pdf(tb, ids, pos.repeat(nl, 1), depth).reshape(nl, n)
+    sum_err = float((pdfs.double().sum(0) - 1.0).abs().max())
+    if not sum_err <= HIER_SUM_ABS:
+        fail(f"hierarchy: the pdfs of its {nl} lights sum to 1 +- {sum_err} "
+             f"> {HIER_SUM_ABS}")
+    rng = np.random.default_rng(seed + 1)
+    sd = torch.from_numpy(rng.integers(0, 2**32, n).astype(np.int64)).to(dev)
+    ct = torch.from_numpy(rng.integers(0, 2**20, n).astype(np.int64)).to(dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    loc, pdf, _ = hierarchy_sample(tb, pos, sd, ct, act, depth)
+    rel = float(((pdf - hierarchy_pdf(tb, loc, pos, depth)).abs()
+                 / pdf).max())
+    if not rel <= HIER_PDF_REL:
+        fail(f"hierarchy: a sample's pdf and the replay's differ by {rel}")
+    return dict(points=n, lights=nl, depth=depth, pdf_sum_max_abs_err=sum_err,
+                sample_vs_replay_max_rel=rel,
+                distinct_picks=int(torch.unique(loc).numel()))
+
+
+def check_cdf(name, marg, cond, n, seed, chunk=1 << 16):
+    """`n` seeded draws from an env's 2D CDF tables on the card: the pdf at
+    each sampled position (`cdf2d_pdf`) must be the sample's pdf wherever
+    that is > 0.  A draw whose position rounds onto the next cell's edge
+    ((offset + remainder) / size in float32) is counted apart and not held:
+    its position lies in the next cell."""
+    from ignis_tpu_torch.core.vec import to_int32
+    from ignis_tpu_torch.light import env_cdf
+    dev = marg.device
+    h, w = cond.shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    worst, held, edge = 0.0, 0, 0
+    for i in range(0, n, chunk):
+        u = torch.rand(chunk, generator=g, device=dev)
+        v = torch.rand(chunk, generator=g, device=dev)
+        pos, pdf = env_cdf.cdf2d_sample(marg, cond, u, v)
+        yoff = env_cdf._cdf1d_sample(marg, v)[0]
+        xoff = env_cdf._cdf1d_sample_rows(cond, yoff, u)[0]
+        inside = ((to_int32(pos[:, 0] * w).long() == xoff)
+                  & (to_int32(pos[:, 1] * h).long() == yoff))
+        m = (pdf > 0) & inside
+        got = env_cdf.cdf2d_pdf(marg, cond, pos)
+        if m.any():
+            worst = max(worst, float(((got - pdf).abs() / pdf)[m].max()))
+        held += int(m.sum())
+        edge += int(((pdf > 0) & ~inside).sum())
+    if not worst <= CDF_REL:
+        fail(f"{name}: cdf2d_pdf at the sampled positions differs from the "
+             f"sample's pdf by {worst} > {CDF_REL}")
+    return dict(draws=n, table=[h, w], held=held, on_cell_edge=edge,
+                max_rel=worst)
+
+
+def cpu_vs_card(rt, n, seed):
+    """`select_light` and `sample_light_direct` on the same `n` lanes of
+    `rt`'s scene, with its tables on the card and on the CPU: the same
+    light ids and counters, the directions within DIR_ABS."""
+    from ignis_tpu_torch.convert import tables_from_numpy
+    from ignis_tpu_torch.light.union import sample_light_direct, select_light
+    rng = np.random.default_rng(seed)
+    host = dict(
+        seed=torch.from_numpy(rng.integers(0, 2**32, n).astype(np.int64)),
+        ctr=torch.from_numpy(rng.integers(0, 2**20, n).astype(np.int64)),
+        active=torch.from_numpy(rng.uniform(size=n) < 0.9),
+        entering=torch.from_numpy(rng.uniform(size=n) < 0.5),
+        pos=room_points(n, seed, "cpu"))
+    out = {}
+    for dev, tb in (("cpu", tables_from_numpy(rt.scene.tables, "cpu")),
+                    ("card", rt.tables)):
+        d = {k: v.to(rt.device if dev == "card" else "cpu")
+             for k, v in host.items()}
+        idx, pdf, c = select_light(rt.scene, tb, d["seed"], d["ctr"],
+                                   d["active"], from_pos=d["pos"])
+        ls, c = sample_light_direct(rt.scene, tb, idx, d["pos"],
+                                    d["entering"], d["seed"], c, d["active"])
+        out[dev] = (idx.cpu(), c.cpu(), ls["dir"].cpu(), pdf.cpu(),
+                    ls["pdf_solid"].cpu())
+    (ia, ca, da, pa, qa), (ib, cb, db, pb_, qb) = out["cpu"], out["card"]
+    ids_diff = int((ia != ib).sum())
+    ctr_diff = int((ca != cb).sum())
+    dir_err = float((da - db).abs().max())
+    if ids_diff or ctr_diff or not dir_err <= DIR_ABS:
+        fail(f"lights: CPU vs card: {ids_diff} light ids and {ctr_diff} "
+             f"counters differ, directions by {dir_err} (> {DIR_ABS}?)")
+    sel_rel = float(((pa - pb_).abs() / pa.abs().clamp_min(1e-30)).max())
+    return dict(lanes=n, ids_differ=ids_diff, counters_differ=ctr_diff,
+                dir_max_abs_err=dir_err, select_pdf_max_rel=sel_rel,
+                lights_picked=int(torch.unique(ia).numel()))
+
+
+def lights_phase(dev, wrappers, runs, bw, pb):
+    """The light breadth through `Runtime.step`: the room of
+    `daylight_scene()` (a sun, a Hosek sky baked to a CDF env, 256 spots
+    under the light hierarchy) on the packet-BVH kernels and the demo box of
+    `env_scene()` (an HDR env sampled by its summed-area table, 64 points
+    under the flux CDF) on the Baldwin-Weber kernels.  Each scene's steps,
+    profiled step and kernel-vs-plain means; the hierarchy, CDF and
+    CPU-vs-card checks; the room's gradient with respect to `light_data`
+    and the baked sky.  Adds the two paths' runs to `runs` and emits the
+    `lights` line."""
+    from ignis_tpu_torch.api import Runtime
+    from ignis_tpu_torch.scenes import daylight_scene, env_scene
+    t0 = time.perf_counter()
+    env_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "env_scene")
+    os.makedirs(env_dir, exist_ok=True)
+    rt_day = Runtime(daylight_scene(), width=FILM, height=FILM, device=dev)
+    rt_env = Runtime(env_scene(env_dir), width=FILM, height=FILM, device=dev)
+    t1 = time.perf_counter()
+    light_runs = {}
+    for path, rt_l, patches in (
+            ("daylight", rt_day, dict(
+                packet_bvh_closest=pb.packet_bvh_closest_plain,
+                packet_bvh_any=pb.packet_bvh_any_plain)),
+            ("env", rt_env, dict(
+                bw_closest=bw.bw_closest_plain, bw_any=bw.bw_any_plain))):
+        steps = 2
+        runs[path] = timed_steps(path, rt_l, steps, 1, wrappers)
+        prof = profiled_step(rt_l, 1)
+        # kernels against their plain versions on a smaller film, same seed:
+        # the kernels are bit-equal, so the means must be equal
+        scene = daylight_scene() if path == "daylight" else env_scene(env_dir)
+        small = Runtime(scene, width=LIGHT_FILM, height=LIGHT_FILM,
+                        device=dev)
+        means = kernel_and_plain_means(path, small, 1, patches, max_rel=0.0)
+        light_runs[path] = dict(
+            **runs[path], **prof, **means,
+            kernel_launches_per_step={
+                k: runs[path]["launches"][k] / (steps + 1)
+                for k in PATH_KERNELS[path]},
+            tris=int(rt_l.tables["tri_v0"].shape[0]),
+            lights=rt_l.scene.num_lights,
+            light_types=sorted({l.type for l in rt_l.scene.lights}),
+            selector=rt_l.scene.technique.light_selector,
+            lh_depth=int(getattr(rt_l.scene, "lh_depth", 0)))
+    t2 = time.perf_counter()
+    checks = dict(
+        hierarchy=check_hierarchy(rt_day, HIER_POINTS, 3),
+        sky_cdf=check_cdf("sky", rt_day.tables["light1_cdf_m"],
+                          rt_day.tables["light1_cdf_c"], CDF_DRAWS, 4),
+        env_sat_cdf=check_cdf("env", rt_env.tables["light1_cdf_m"],
+                              rt_env.tables["light1_cdf_c"], CDF_DRAWS, 5),
+        cpu_vs_card=cpu_vs_card(rt_day, N_RAYS, 6))
+    t3 = time.perf_counter()
+    grad = fwdbwd("daylight", rt_day, DAYLIGHT_LANES, wrappers,
+                  lambda: pb_plain(pb), ("light_data", "light1_sky_img"),
+                  reps=1)
+    emit("lights", t0, **light_runs, checks=checks, gradient=grad,
+         part_seconds=dict(scenes=round(t1 - t0, 3), steps=round(t2 - t1, 3),
+                           checks=round(t3 - t2, 3),
+                           grad=round(time.perf_counter() - t3, 3)))
 
 
 def registry_change(rt, name, value, spi, m0):
@@ -1216,8 +1430,8 @@ def main():
     # ---- 9. fwdbwd: the gradient of the summed differentiable render of the
     # demo scene with respect to mat_colors (the reference's phase_fwdbwd)
     t0 = time.perf_counter()
-    runs["fwdbwd"] = fwdbwd("fwdbwd", rt_demo, FWDBWD_LANES, wrappers, bw,
-                            ("mat_colors",), reps=2)
+    runs["fwdbwd"] = fwdbwd("fwdbwd", rt_demo, FWDBWD_LANES, wrappers,
+                            lambda: bw_plain(bw), ("mat_colors",), reps=2)
     emit("fwdbwd", t0, **runs["fwdbwd"])
 
     # ---- 10. train: SGD steps of parallel.sharding.train_step on the
@@ -1244,15 +1458,16 @@ def main():
     means = kernel_and_plain_means("textured", rt_tex, 1, dict(
         bw_closest=bw.bw_closest_plain, bw_any=bw.bw_any_plain))
     t2 = time.perf_counter()
-    per_iter = launches_per_iteration(rt_tex, 1)
+    prof = profiled_step(rt_tex, 1)
     t3 = time.perf_counter()
     reg = registry_change(rt_tex, "p_col1", [0.2, 0.9, 0.3], 1,
                           means["mean_kernel"])
     t4 = time.perf_counter()
-    grad = fwdbwd("textured", rt_tex, TEXTURED_LANES, wrappers, bw,
+    grad = fwdbwd("textured", rt_tex, TEXTURED_LANES, wrappers,
+                  lambda: bw_plain(bw),
                   (rt_tex.scene.textures[0]["img_key"], "params"), reps=1)
     emit("textured", t0, **runs["textured"], **means,
-         launches_per_wave_iteration=per_iter, registry=reg, gradient=grad,
+         **prof, registry=reg, gradient=grad,
          part_seconds=dict(steps=round(t1 - t0, 3), means=round(t2 - t1, 3),
                            profile=round(t3 - t2, 3),
                            registry=round(t4 - t3, 3),
@@ -1261,6 +1476,9 @@ def main():
          textures=[t["type"] for t in rt_tex.scene.textures],
          nmod_kinds=rt_tex.scene.nmod_kinds,
          env_texture=rt_tex.scene.lights[1].tex)
+
+    # ---- 12. lights: the light breadth through Runtime.step
+    lights_phase(dev, wrappers, runs, bw, pb)
 
     # ---- the kernels line: launches are those of the main paths' runs, in
     # all and for each path that has to launch the kernel

@@ -82,8 +82,8 @@ def _copy_dataclass(cls, src, **extra):
 def scene_from_metadata(meta) -> CompiledScene:
     """The port's `CompiledScene` from any object that carries the metadata
     the integrator reads: width, height, sampler, camera, technique,
-    bsdf_types, lights, param_registry, bbox_min/max, textures, media and the
-    compiled numpy `tables`."""
+    bsdf_types, lights (with a sky's parameters), lh_depth, param_registry,
+    bbox_min/max, textures, media and the compiled numpy `tables`."""
     cam = _copy_dataclass(CameraConfig, meta.camera)
     for extra in ("auto_frame", "fov", "fov_vertical", "aspect"):
         if hasattr(meta.camera, extra):
@@ -111,6 +111,8 @@ def scene_from_metadata(meta) -> CompiledScene:
     cs.nmod_kinds = list(getattr(meta, "nmod_kinds",
                                  [0] * len(cs.bsdf_types)))
     cs.halton_setup = getattr(meta, "halton_setup", None)
+    # the light hierarchy's descent length, set after construction
+    cs.lh_depth = int(getattr(meta, "lh_depth", 0))
     cs.param_registry = dict(getattr(meta, "param_registry", {}) or {})
     cs.parameter_values = dict(getattr(meta, "parameter_values", {}) or {})
     cs.instanced = getattr(meta, "instanced", None)

@@ -75,6 +75,25 @@ def square_to_concentric_disk(px, py):
     return torch.where(zero, z, x), torch.where(zero, z, y)
 
 
+def uniform_cone_pdf(cos_angle):
+    denom = 2.0 * PI * (1.0 - cos_angle)
+    nz = denom != 0.0
+    one = torch.ones_like(denom)
+    return torch.where(nz, 1.0 / torch.where(nz, denom, one), one)
+
+
+def sample_uniform_cone(u, v, cos_angle):
+    """Z-up cone of half-angle acos(cos_angle), through the concentric
+    disk."""
+    c1 = 1.0 - cos_angle
+    px, py = square_to_concentric_disk(u, v)
+    n2 = px * px + py * py
+    z = cos_angle + c1 * (1.0 - n2)
+    f = safe_sqrt(c1 * (2.0 - c1 * n2))
+    return (vec3(px * f, py * f, z),
+            torch.broadcast_to(uniform_cone_pdf(cos_angle), u.shape))
+
+
 def equal_area_square_to_sphere(px, py):
     """Clarberg equal-area square->sphere; (0.5, 0.5) -> +Z."""
     u = 2.0 * px - 1.0

@@ -1,10 +1,13 @@
 """Batched light union: selection, direct sampling, pdfs and emission.
 
-Counterpart of ignis_tpu/light/union.py for point, plane-area, mesh-area,
-analytic-sphere and constant or textured (uniformly sampled) environment
-lights with the uniform light selector.  Every branch
+Counterpart of ignis_tpu/light/union.py for every light type (point, spot,
+directional, sun, plane / mesh / sphere area, constant, textured and sky
+environments, the importance-sampled environment) and every selector
+(`uniform`, `simple` / `cdf` with the flux CDF, `hierarchy`).  Every branch
 reports its pdf both raw (`pdf_value`) and converted to solid angle
-(`pdf_solid`), which is what the path technique consumes.
+(`pdf_solid`), which is what the path technique consumes.  Draw order and
+draw counts are the JAX package's, lane by lane, so that the counter-based
+RNG stays aligned and paths replay.
 
 Light parameter rows live in tables["light_data"] (N_lights, 32):
   POINT:       pos[0:3], intensity[3:6]
@@ -12,48 +15,52 @@ Light parameter rows live in tables["light_data"] (N_lights, 32):
                radiance[13:16]
   AREA_MESH:   radiance[0:3], tri_offset[3], tri_count[4], entity[5]
   ENV:         radiance*scale[0:3] (the scale alone when textured),
-               transform3x3[3:12]
+               transform3x3[3:12]; a sky: ground terms from [12]
+  ENV_CDF:     scale[0:3], transform3x3[3:12]
+  DIRECTIONAL: dir[0:3], irradiance[3:6]
+  SPOT:        pos[0:3], dir[3:6], intensity[6:9], cos_cutoff[9],
+               cos_falloff[10]
+  SUN:         dir[0:3], irradiance[3:6], cos_angle[9]
   AREA_SPHERE: radiance[0:3], radius[3], world center[4:7], entity[7],
                total area 4*pi*r^2 [8]
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ignis_tpu_torch.core import rng
 from ignis_tpu_torch.core.dgather import gather_rows
 from ignis_tpu_torch.core.vec import (
-    PI, cross, dot, length, safe_div, signbit,
+    FLT_EPS, FLT_MAX, PI, clip, cross, device_const, dot, length, maximum,
+    orthonormal_basis, safe_div, signbit, to_world,
 )
 from ignis_tpu_torch.core.warp import (
-    equal_area_sphere_pdf, equal_area_square_to_sphere, sample_triangle,
+    cosine_hemisphere_pdf, equal_area_sphere_pdf,
+    equal_area_square_to_sphere, sample_cosine_hemisphere, sample_triangle,
+    sample_uniform_cone,
 )
+from ignis_tpu_torch.light.env_cdf import (
+    cdf2d_pdf, cdf2d_sample, map_env_uv, sin_theta_of, switch_env_up,
+    uv_to_dir,
+)
+from ignis_tpu_torch.light.hierarchy import hierarchy_pdf, hierarchy_sample
 from ignis_tpu_torch.scene.compile import (
-    LIGHT_AREA_MESH, LIGHT_AREA_PLANE, LIGHT_AREA_SPHERE, LIGHT_ENV,
-    LIGHT_POINT,
+    LIGHT_AREA_MESH, LIGHT_AREA_PLANE, LIGHT_AREA_SPHERE, LIGHT_DIRECTIONAL,
+    LIGHT_ENV, LIGHT_ENV_CDF, LIGHT_POINT, LIGHT_SPOT, LIGHT_SUN,
 )
-
-_PORTED = (LIGHT_POINT, LIGHT_AREA_PLANE, LIGHT_AREA_MESH, LIGHT_ENV,
-           LIGHT_AREA_SPHERE)
 
 # draw counts per light type (sample_direct)
-_LIGHT_DRAWS = {LIGHT_POINT: 0, LIGHT_AREA_PLANE: 2, LIGHT_AREA_MESH: 2,
-                LIGHT_ENV: 2, LIGHT_AREA_SPHERE: 2}
+_LIGHT_DRAWS = {
+    LIGHT_POINT: 0, LIGHT_DIRECTIONAL: 0, LIGHT_SPOT: 0,
+    LIGHT_AREA_PLANE: 2, LIGHT_AREA_MESH: 2, LIGHT_ENV: 2,
+    LIGHT_ENV_CDF: 2, LIGHT_SUN: 2, LIGHT_AREA_SPHERE: 2,
+}
 
 
-def _check_ported(scene):
-    for l in scene.lights:
-        if l.type not in _PORTED:
-            raise NotImplementedError(
-                f"light type id {l.type} is not ported to ignis_tpu_torch "
-                "yet")
-        # a textured env without its CDF is LIGHT_ENV with `tex` set: in
-        # the slice; the CDF variant is a type of its own
-        if l.type == LIGHT_ENV and getattr(l, "sky", None) is not None:
-            raise NotImplementedError(
-                "sky environment lights are not ported to ignis_tpu_torch "
-                "yet")
+def _ids(dev, ids):
+    return device_const(tuple(ids), torch.int32, dev)
 
 
 def _safe_len(v):
@@ -78,26 +85,82 @@ def select_light_uniform(num_lights, seed, counter, active):
 
 
 def select_light(scene, tables, seed, counter, active, from_pos=None):
-    """Selector dispatch; only `uniform` is ported.
+    """Selector dispatch.  `simple` / `cdf` use the flux-weighted CDF over
+    the finite lights, with a 0.5 infinite / finite split when both exist;
+    `hierarchy` descends the light tree from the shading point `from_pos`.
     Returns (light_idx, select_pdf (per-lane), counter)."""
     kind = scene.technique.light_selector
+    num_lights = scene.num_lights
     finite_ids = [i for i, l in enumerate(scene.lights) if not l.infinite]
-    if (scene.num_lights > 1 and kind in ("simple", "cdf", "hierarchy")
-            and finite_ids):
-        raise NotImplementedError(
-            f"light selector '{kind}' is not ported to ignis_tpu_torch yet")
-    idx, pdf, counter = select_light_uniform(scene.num_lights, seed, counter,
-                                             active)
-    return idx, torch.full(counter.shape, pdf, dtype=torch.float32,
-                           device=counter.device), counter
+    inf_ids = [i for i, l in enumerate(scene.lights) if l.infinite]
+    dev = counter.device
+
+    if (num_lights <= 1 or kind not in ("simple", "cdf", "hierarchy")
+            or not finite_ids):
+        idx, pdf, counter = select_light_uniform(num_lights, seed, counter,
+                                                 active)
+        return idx, torch.full(counter.shape, pdf, dtype=torch.float32,
+                               device=dev), counter
+
+    fin_map = _ids(dev, finite_ids)
+    ratio = 0.5
+    if inf_ids:
+        q, counter_q = rng.next_f32(seed, counter)
+        counter = torch.where(active, counter_q, counter)
+        pick_inf = q < ratio
+        if len(inf_ids) > 1:
+            iidx, counter = rng.next_i32(seed, counter, 0, len(inf_ids) - 1,
+                                         active & pick_inf)
+        else:
+            iidx = torch.zeros(counter.shape, dtype=torch.int32, device=dev)
+        inf_light = _ids(dev, inf_ids)[iidx.long()]
+
+    if (kind == "hierarchy" and "lh_child" in tables
+            and from_pos is not None and len(finite_ids) >= 2):
+        if inf_ids:
+            loc, hpdf, counter = hierarchy_sample(
+                tables, from_pos, seed, counter, active & ~pick_inf,
+                scene.lh_depth)
+            idx = torch.where(pick_inf, inf_light, fin_map[loc.long()])
+            pdf = torch.where(pick_inf,
+                              torch.full_like(hpdf, ratio / len(inf_ids)),
+                              hpdf * (1.0 - ratio))
+            return idx, pdf, counter
+        loc, hpdf, counter = hierarchy_sample(
+            tables, from_pos, seed, counter, active, scene.lh_depth)
+        return fin_map[loc.long()], hpdf, counter
+
+    cdf = tables["light_sel_cdf"]
+    u, counter_f = rng.next_f32(seed, counter)
+    off = torch.clamp(torch.searchsorted(cdf, u.contiguous(), right=True), 0,
+                      cdf.shape[0] - 1)
+    if inf_ids:
+        counter = torch.where(active & ~pick_inf, counter_f, counter)
+        idx = torch.where(pick_inf, inf_light, fin_map[off])
+    else:
+        counter = torch.where(active, counter_f, counter)
+        idx = fin_map[off]
+    return idx, tables["light_sel_pdf"][idx.long()], counter
 
 
 def light_select_pdf(scene, tables, light_idx, from_pos):
-    """Per-lane pdf of the selector choosing `light_idx` (static table)."""
-    if scene.technique.light_selector == "hierarchy":
-        raise NotImplementedError(
-            "light selector 'hierarchy' is not ported to ignis_tpu_torch yet")
-    return gather_rows(tables["light_sel_pdf"], light_idx)
+    """Per-lane pdf of the selector choosing `light_idx` (global id) from
+    `from_pos`: the static table for uniform and CDF selection, a replay of
+    the descent for the hierarchy."""
+    kind = scene.technique.light_selector
+    finite_ids = [i for i, l in enumerate(scene.lights) if not l.infinite]
+    inf_ids = [i for i, l in enumerate(scene.lights) if l.infinite]
+    static = gather_rows(tables["light_sel_pdf"], light_idx)
+    if (kind != "hierarchy" or "lh_child" not in tables
+            or from_pos is None or len(finite_ids) < 2):
+        return static
+    loc = gather_rows(tables["light_fin_local"], light_idx)
+    hpdf = hierarchy_pdf(tables, torch.clamp_min(loc, 0), from_pos,
+                         scene.lh_depth)
+    if inf_ids:
+        hpdf = hpdf * 0.5
+    # infinite lights keep the static split pdf
+    return torch.where(loc >= 0, hpdf, static)
 
 
 # ---------------------------------------------------------------- sampling
@@ -111,6 +174,63 @@ def _sample_point(data, from_point):
     one = torch.ones_like(dist)
     return dict(dir=d, dist=dist, cos=one, pos=pos, intensity=intensity,
                 pdf_value=one, pdf_solid=dist * dist)
+
+
+def _sample_sun(data, from_point, u1, u2):
+    """A uniform cone around the (scene-incoming) sun direction; delta
+    pdf."""
+    n = from_point.shape[0]
+    sdir = data[:, 0:3]
+    cos_angle = data[:, 9]
+    color = data[:, 3:6]
+    sun_radius = (torch.sqrt(maximum(1.0 - cos_angle * cos_angle, 0.0))
+                  / maximum(cos_angle, 1e-8))
+    sun_area = PI * sun_radius * sun_radius
+    local, pdf = sample_uniform_cone(u1, u2, cos_angle)
+    tb, bb = orthonormal_basis(sdir)
+    wdir = to_world(local, tb, bb, sdir)
+    intensity = color * safe_div(1.0, sun_area * pdf)[..., None]
+    f32 = dict(dtype=torch.float32, device=from_point.device)
+    one = torch.ones(n, **f32)
+    return dict(dir=-wdir, dist=torch.full((n,), FLT_MAX, **f32),
+                cos=local[..., 2], pos=torch.zeros((n, 3), **f32),
+                intensity=intensity, pdf_value=one, pdf_solid=one)
+
+
+def _sample_directional(data, from_point, scene_radius):
+    d = -data[:, 0:3]  # the direction property points FROM the light
+    irr = data[:, 3:6]
+    dist = torch.full(from_point.shape[:-1], scene_radius,
+                      dtype=torch.float32, device=from_point.device)
+    one = torch.ones_like(dist)
+    return dict(dir=d, dist=dist, cos=one, pos=from_point + d * scene_radius,
+                intensity=irr, pdf_value=one, pdf_solid=one)
+
+
+def _sample_spot(data, from_point):
+    """Area-measure pdf 1 inside the cone (0 outside), the light-side cosine
+    fed through to the solid-angle pdf, and a smoothstep falloff between the
+    cutoff and falloff cosines."""
+    pos = data[:, 0:3]
+    ldir = data[:, 3:6]
+    intensity = data[:, 6:9]
+    cos_cutoff = data[:, 9]
+    cos_falloff = data[:, 10]
+    dir_ = pos - from_point
+    dist = _safe_len(dir_)
+    d = dir_ * safe_div(1.0, dist)[..., None]
+    cos_a = dot(-d, ldir)   # angle of (light -> surface) to the spot axis
+    blend = cos_falloff - cos_cutoff
+    t = clip(safe_div(cos_a - cos_cutoff, blend), 0.0, 1.0)
+    smooth = t * t * (3.0 - 2.0 * t)
+    zero, one = torch.zeros_like(t), torch.ones_like(t)
+    fall = torch.where(blend <= FLT_EPS,
+                       torch.where(cos_a <= cos_cutoff, zero, one), smooth)
+    pdf_value = torch.where(cos_a > cos_cutoff, one, zero)
+    return dict(dir=d, dist=dist, cos=cos_a, pos=pos,
+                intensity=intensity * fall[..., None],
+                pdf_value=pdf_value,
+                pdf_solid=pdf_value * safe_div(dist * dist, torch.abs(cos_a)))
 
 
 def _compute_sq(origin, ex, ey, nrm, width, height, from_point):
@@ -275,44 +395,158 @@ def _sample_area_sphere(data, from_point, is_entering, u1, u2):
                 pdf_solid=pdfv * safe_div(d2, torch.abs(cos)))
 
 
-def _switch_env_up(v):
-    """(x, y, z) <-> (x, z, y)."""
-    return torch.stack([v[..., 0], v[..., 2], v[..., 1]], dim=-1)
-
-
-def _map_env_uv(d):
-    """Z-up direction -> env uv, with (0.5, 0.5) the Y-up direction."""
-    theta = torch.acos(torch.clamp(d[..., 2], -1.0, 1.0))
-    phi = torch.atan2(d[..., 1], d[..., 0])
-    phi = torch.where(phi < 0.0, phi + 2.0 * PI, phi)
-    v = theta / PI
-    u = phi / (2.0 * PI)
-    return torch.stack([torch.remainder(u + 0.25, 1.0), 1.0 - v], dim=-1)
-
-
-def _env_radiance(scene, tables, info, data, d):
-    """scale * radiance seen along world directions `d`: the texture at the
-    light-space direction's uv for a textured env, else the constant."""
+def _env_radiance(scene, tables, info, data, uv):
+    """scale * radiance at env uv: the texture's for a textured env (the
+    row's base holds the scale alone), else the constant."""
     base = data[0:3]
     if getattr(info, "tex", -1) >= 0:
         from ignis_tpu_torch.texture.eval import eval_one
-        trans = data[3:12].reshape(3, 3)
-        uv = _map_env_uv(_switch_env_up(d @ trans.T))
         tex = eval_one(scene, tables, scene.textures[info.tex], uv)
-        return tex * base  # base holds the scale for a textured env
-    return torch.broadcast_to(base, d.shape)
+        return tex * base
+    return torch.broadcast_to(base, uv.shape[:-1] + (3,))
+
+
+def _cie_wmean(cos_theta, c1, c2):
+    a = torch.pow(cos_theta + 1.01, 10.0)
+    a2 = a * a
+    f1 = (a2 / (a2 + 1.0))[..., None]
+    f2 = (1.0 / (a2 + 1.0))[..., None]
+    return c1 * f1 + c2 * f2
+
+
+def _no_ground(sky, cos_theta, v):
+    if sky["has_ground"]:
+        return v
+    return torch.where((cos_theta < 0)[..., None], torch.zeros_like(v), v)
+
+
+def _arccos_inside(c):
+    # clamped strictly inside (-1, 1), as the JAX package does for its
+    # backward pass
+    return torch.arccos(clip(c, -1.0 + 1e-7, 1.0 - 1e-7))
+
+
+def _env_func_eval(scene, tables, info, data, ldir):
+    """Radiance of a LIGHT-space direction (the transform applied): the
+    constant or textured env, or one of the sky models (CIE uniform /
+    cloudy / clear / intermediate, Perez)."""
+    sky = getattr(info, "sky", None)
+    if sky is None:
+        uv = map_env_uv(switch_env_up(ldir))
+        return _env_radiance(scene, tables, info, data, uv)
+    cos_theta = ldir[..., 1]  # env lights use Y as up
+    kind = sky["kind"]
+    if kind in ("cie_uniform", "cie_cloudy"):
+        zenith = data[0:3]
+        ground = data[12:15]
+        gb = data[15]
+        cloudy = kind == "cie_cloudy"
+        c1 = ((1.0 + 2.0 * cos_theta) / 3.0 if cloudy
+              else torch.ones_like(cos_theta))
+        c2 = 0.777777777 if cloudy else 1.0
+        v = _cie_wmean(cos_theta, zenith * c1[..., None],
+                       torch.broadcast_to(ground * gb * c2, ldir.shape))
+        return _no_ground(sky, cos_theta, v)
+    if kind == "cie_sunny":
+        # zenith * zb and ground * gb * c2 are folded into the row
+        zcol = data[0:3]
+        gcol = data[12:15]
+        sun_dir = device_const(tuple(np.float32(sky["sun_dir"]).tolist()),
+                               torch.float32, ldir.device)
+        cos_gamma = clip(torch.sum(ldir * sun_dir, dim=-1), -1.0, 1.0)
+        gamma = _arccos_inside(cos_gamma)
+        if sky["is_clear"]:
+            ok = cos_theta >= 0.01
+            ct_safe = torch.where(ok, cos_theta, torch.ones_like(cos_theta))
+            horiz = torch.where(ok, 1.0 - torch.exp(-0.32 / ct_safe),
+                                torch.ones_like(cos_theta))
+            c1 = (0.91 + 10.0 * torch.exp(-3.0 * gamma)
+                  + 0.45 * cos_gamma * cos_gamma) * horiz
+        else:
+            theta = _arccos_inside(cos_theta)
+            stheta = float(np.arccos(np.clip(sky["sun_dir"][1], -1.0, 1.0)))
+            # a float64 factor, rounded to float32 as the JAX package's
+            # array arithmetic rounds it
+            s_fac = float(np.float32(np.sin(4.396 - 2.6 * stheta)))
+            c1 = (((1.35 * torch.sin(5.631 - 3.59 * theta) + 3.12)
+                   * s_fac + 6.37 - theta) / 2.326
+                  * torch.exp(gamma * (-0.563)
+                              * ((2.629 - theta) * (1.562 - stheta)
+                                 + 0.812)))
+        v = _cie_wmean(cos_theta, zcol * c1[..., None],
+                       torch.broadcast_to(gcol, ldir.shape))
+        return _no_ground(sky, cos_theta, v)
+    if kind == "perez":
+        # lum is folded with the diffuse normalisation in the row
+        lum = data[0:3]
+        ground = data[12:15]
+        sun_dir = device_const(tuple(np.float32(sky["sun_dir"]).tolist()),
+                               torch.float32, ldir.device)
+        a, b, c, d, e = sky["abcde"]
+        sun_c = clip(torch.sum(ldir * sun_dir, dim=-1), -1.0, 1.0)
+        sun_a = _arccos_inside(sun_c)
+        A = 1.0 + a * torch.exp(b / maximum(0.01, cos_theta))
+        B = 1.0 + c * torch.exp(d * sun_a) + e * sun_c * sun_c
+        fac = A * B
+        v = _cie_wmean(cos_theta, lum * fac[..., None],
+                       torch.broadcast_to(ground, ldir.shape))
+        return _no_ground(sky, cos_theta, v)
+    return torch.broadcast_to(data[0:3], ldir.shape)
+
+
+def _is_hemi(info):
+    sky = getattr(info, "sky", None)
+    return bool(sky and sky.get("hemi", not sky.get("has_ground", True)))
 
 
 def _sample_env(scene, tables, info, data, from_point, scene_radius, u1, u2):
-    """Environment light: equal-area sphere sampling."""
+    """Environment light: a cosine hemisphere around Y-up in light space for
+    a sky without ground, else equal-area sphere sampling."""
+    trans = data[3:12].reshape(3, 3)
+    full = dict(dtype=torch.float32, device=u1.device)
+    if _is_hemi(info):
+        sz, pdf = sample_cosine_hemisphere(u1, u2)
+        ld = switch_env_up(sz)                    # Y-up light direction
+        intensity = (_env_func_eval(scene, tables, info, data, ld)
+                     * safe_div(1.0, pdf)[..., None])
+        gdir = ld @ trans
+        return dict(dir=gdir, dist=torch.full(u1.shape, scene_radius, **full),
+                    cos=torch.ones_like(u1),
+                    pos=from_point + gdir * scene_radius,
+                    intensity=intensity, pdf_value=pdf, pdf_solid=pdf)
     d = equal_area_square_to_sphere(u1, u2)
     pdf = torch.full_like(u1, equal_area_sphere_pdf())
-    radiance = _env_radiance(scene, tables, info, data, d)
-    intensity = radiance * safe_div(1.0, pdf)[..., None]
-    return dict(dir=d, dist=torch.full_like(u1, scene_radius),
+    ldir = d @ trans.T
+    intensity = (_env_func_eval(scene, tables, info, data, ldir)
+                 * safe_div(1.0, pdf)[..., None])
+    return dict(dir=d, dist=torch.full(u1.shape, scene_radius, **full),
                 cos=torch.ones_like(u1),
                 pos=from_point + d * scene_radius,
                 intensity=intensity, pdf_value=pdf, pdf_solid=pdf)
+
+
+def _env_pdf_dir(pdf_uv, dz):
+    """uv-measure pdf -> solid angle."""
+    return safe_div(pdf_uv, sin_theta_of(dz) * 2.0 * PI * PI)
+
+
+def _sample_env_cdf(scene, tables, info, data, lid, from_point, scene_radius,
+                    u1, u2):
+    """Textured environment sampled by its 2D CDF."""
+    pos, pdf = cdf2d_sample(tables[f"light{lid}_cdf_m"],
+                            tables[f"light{lid}_cdf_c"], u1, u2)
+    intensity = _env_radiance(scene, tables, info, data, pos)
+    dz = uv_to_dir(pos)
+    pdf_dir = _env_pdf_dir(pdf, dz)
+    trans = data[3:12].reshape(3, 3)
+    wdir = switch_env_up(dz) @ trans
+    return dict(dir=wdir,
+                dist=torch.full(u1.shape, scene_radius, dtype=torch.float32,
+                                device=u1.device),
+                cos=torch.ones_like(u1),
+                pos=from_point + wdir * scene_radius,
+                intensity=intensity * safe_div(1.0, pdf_dir)[..., None],
+                pdf_value=pdf_dir, pdf_solid=pdf_dir)
 
 
 def _merge(out, r, m):
@@ -327,7 +561,6 @@ def sample_light_direct(scene, tables, light_idx, from_point, is_entering,
 
     Returns (sample dict incl. infinite/delta masks, counter).
     """
-    _check_ported(scene)
     types_present = sorted({l.type for l in scene.lights})
     light_type = gather_rows(tables["light_type"], light_idx)
     data = _ldata(tables, light_idx)
@@ -353,19 +586,27 @@ def sample_light_direct(scene, tables, light_idx, from_point, is_entering,
     draws = torch.zeros(n, dtype=torch.int64, device=dev)
 
     for t in types_present:
-        if t == LIGHT_ENV:
-            # env lights are addressed per light id
+        if t in (LIGHT_ENV, LIGHT_ENV_CDF):
+            # env lights carry their own textures / CDF tables: addressed
+            # per light id
             for lid, info in enumerate(scene.lights):
                 if info.type != t:
                     continue
-                r = _sample_env(scene, tables, info,
-                                tables["light_data"][lid], from_point,
-                                scene_radius, us[0], us[1])
+                ld = tables["light_data"][lid]
+                if t == LIGHT_ENV:
+                    r = _sample_env(scene, tables, info, ld, from_point,
+                                    scene_radius, us[0], us[1])
+                else:
+                    r = _sample_env_cdf(scene, tables, info, ld, lid,
+                                        from_point, scene_radius, us[0],
+                                        us[1])
                 m = light_idx == lid
                 _merge(out, r, m)
                 draws = torch.where(m, torch.full_like(draws, 2), draws)
             continue
-        if t == LIGHT_POINT:
+        if t == LIGHT_SUN:
+            r = _sample_sun(data, from_point, us[0], us[1])
+        elif t == LIGHT_POINT:
             r = _sample_point(data, from_point)
         elif t == LIGHT_AREA_PLANE:
             r = _sample_area_plane(data, from_point, is_entering,
@@ -373,9 +614,13 @@ def sample_light_direct(scene, tables, light_idx, from_point, is_entering,
         elif t == LIGHT_AREA_MESH:
             r = _sample_area_mesh(data, tables, from_point, is_entering,
                                   us[0], us[1])
-        else:  # LIGHT_AREA_SPHERE
+        elif t == LIGHT_AREA_SPHERE:
             r = _sample_area_sphere(data, from_point, is_entering,
                                     us[0], us[1])
+        elif t == LIGHT_DIRECTIONAL:
+            r = _sample_directional(data, from_point, scene_radius)
+        else:  # LIGHT_SPOT
+            r = _sample_spot(data, from_point)
         m = light_type == t
         _merge(out, r, m)
         draws = torch.where(m, torch.full_like(draws, _LIGHT_DRAWS[t]), draws)
@@ -394,7 +639,6 @@ def light_pdf_direct_solid(scene, tables, light_idx, ray_org, ray_dir,
     angle (what on_hit's MIS needs).  `prim_coords` are the hit barycentrics;
     the mesh branch reuses sample()'s uv -> triangle mapping on them, as the
     reference does."""
-    _check_ported(scene)
     types_present = sorted({l.type for l in scene.lights})
     light_type = gather_rows(tables["light_type"], light_idx)
     data = _ldata(tables, light_idx)
@@ -433,14 +677,31 @@ def light_pdf_direct_solid(scene, tables, light_idx, ray_org, ray_dir,
 def env_emission_and_pdf(scene, tables, light_id, ray_dir):
     """Emission + pdf_direct (solid) of one infinite light for escaped rays.
     light_id is a static python int."""
-    _check_ported(scene)
     info = scene.lights[light_id]
-    if info.type != LIGHT_ENV:
-        raise NotImplementedError(
-            f"infinite light type id {info.type} is not ported to "
-            "ignis_tpu_torch yet")
     data = tables["light_data"][light_id]
-    color = _env_radiance(scene, tables, info, data, ray_dir)
-    pdf = torch.full(ray_dir.shape[:-1], equal_area_sphere_pdf(),
-                     dtype=torch.float32, device=ray_dir.device)
-    return color, pdf
+    shape = ray_dir.shape[:-1]
+    if info.type == LIGHT_ENV:
+        ldir = ray_dir @ data[3:12].reshape(3, 3).T
+        color = _env_func_eval(scene, tables, info, data, ldir)
+        if _is_hemi(info):
+            # black, and a cosine pdf, above the horizon only
+            above = ldir[..., 1] > 1.1920929e-07
+            color = torch.where(above[..., None], color,
+                                torch.zeros_like(color))
+            pdf = torch.where(above, cosine_hemisphere_pdf(ldir[..., 1]),
+                              torch.zeros_like(ldir[..., 1]))
+            return color, pdf
+        pdf = torch.full(shape, equal_area_sphere_pdf(), dtype=torch.float32,
+                         device=ray_dir.device)
+        return color, pdf
+    if info.type == LIGHT_ENV_CDF:
+        ldir = switch_env_up(ray_dir @ data[3:12].reshape(3, 3).T)
+        uv = map_env_uv(ldir)
+        color = _env_radiance(scene, tables, info, data, uv)
+        pdf_uv = cdf2d_pdf(tables[f"light{light_id}_cdf_m"],
+                           tables[f"light{light_id}_cdf_c"], uv)
+        return color, _env_pdf_dir(pdf_uv, ldir)
+    # delta infinite lights (directional, sun) are never hit by chance
+    return (torch.zeros(ray_dir.shape, dtype=torch.float32,
+                        device=ray_dir.device),
+            torch.zeros(shape, dtype=torch.float32, device=ray_dir.device))

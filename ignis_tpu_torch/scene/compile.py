@@ -8,8 +8,7 @@ analytic sphere records (`sph_rows`), array-of-struct material/light parameter
 tables, and a static `CompiledScene` the integrator specialises on.
 
 Branches whose helpers are not ported yet (measured BSDFs, heterogeneous
-media, importance-sampled and sky environment lights, the light hierarchy,
-the halton sampler) raise `NotImplementedError` when a
+media, the halton sampler) raise `NotImplementedError` when a
 scene reaches them; `check_slice` rejects what compiles but the integrator
 does not cover yet.  Nothing is silently skipped or approximated.
 """
@@ -1139,9 +1138,9 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
                 # table with the reference's exact weighting (sin applied
                 # to the FULL cell weight, not just the marginal) and
                 # derives the sampling tables from it
-                raise NotImplementedError(
-                    "importance-sampled (CDF) environment lights are not "
-                    "ported to ignis_tpu_torch yet")
+                from ignis_tpu_torch.light.env_cdf import (
+                    build_cdf2d, build_sat2d, sat_to_cdf,
+                )
                 img = _bake_texture(textures, img_tables, tid)
                 comp = bool(lobj.get("compensate", True))
                 if str(lobj.get("cdf_method", "")).lower() == "sat":
@@ -1211,8 +1210,7 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
             light_f.append(lrow(zen * scale, trans.reshape(-1), grd, [gb]))
         elif ltype in ("cie_clear", "cie_intermediate"):
             # CIELight.cpp:66-113 (sunny classifications)
-            raise NotImplementedError(
-                f"light type '{ltype}' is not ported to ignis_tpu_torch yet")
+            from ignis_tpu_torch.light import skysun
             zen, _ = _color(lobj.get("zenith"), (1, 1, 1))
             scale, _ = _color(lobj.get("scale"), (1, 1, 1))
             grd, _ = _color(lobj.get("ground"), (1, 1, 1))
@@ -1237,8 +1235,7 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
                                 np.asarray(scale) * np.asarray(grd) * gb * c2))
         elif ltype == "perez":
             # PerezLight.cpp:60-117 + light/cie.art:49-57
-            raise NotImplementedError(
-                "light type 'perez' is not ported to ignis_tpu_torch yet")
+            from ignis_tpu_torch.light import skysun
             sun_dir = skysun.get_sun_direction(lobj)
             tp = skysun.get_timepoint(lobj)
             sin_elev = min(1.0, max(-1.0, -float(sun_dir[1])))
@@ -1269,8 +1266,9 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
         elif ltype == "sky":
             # Hosek-Wilkie sky baked to an env texture + CDF
             # (SkyLight.cpp:30-75; SkyModel.cpp:9-55)
-            raise NotImplementedError(
-                "light type 'sky' is not ported to ignis_tpu_torch yet")
+            from ignis_tpu_torch.light import skysun
+            from ignis_tpu_torch.light.env_cdf import build_cdf2d
+            from ignis_tpu_torch.light.hosek import bake_sky_image
             from ignis_tpu_torch.texture.loader import (FILTER_BILINEAR, TEX_IMAGE,
                                                   WRAP_REPEAT)
             scale, _ = _color(lobj.get("scale"), (1, 1, 1))
@@ -1361,9 +1359,7 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
     for k, li in enumerate(finite_ids):
         fin_local[li] = k
     if sel_kind == "hierarchy" and len(finite_ids) >= 2:
-        raise NotImplementedError(
-            "the light hierarchy selector is not ported to ignis_tpu_torch "
-            "yet")
+        from ignis_tpu_torch.light.hierarchy import build_light_hierarchy
         hpos, hdir, hhas = [], [], []
         scene_c = (bbox_min + bbox_max) * 0.5
         for li in finite_ids:
@@ -1508,8 +1504,7 @@ _SLICE_BSDFS = (BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PHONG,
 # normal modifier kinds: 0 none, 1 normal map, 2 bump map, 3 the constant
 # normal (and tangent) set, 4 a PExpr normal
 _SLICE_NMODS = (0, 1, 2, 3, 4)
-_SLICE_LIGHTS = (LIGHT_POINT, LIGHT_AREA_PLANE, LIGHT_AREA_MESH, LIGHT_ENV,
-                 LIGHT_AREA_SPHERE)
+_SLICE_SELECTORS = ("uniform", "simple", "cdf", "hierarchy")
 
 
 def check_slice(cs: CompiledScene) -> None:
@@ -1521,7 +1516,7 @@ def check_slice(cs: CompiledScene) -> None:
 
     if cs.technique.type != "path":
         no(f"technique '{cs.technique.type}'")
-    if cs.technique.light_selector not in ("uniform",):
+    if cs.technique.light_selector not in _SLICE_SELECTORS:
         no(f"light selector '{cs.technique.light_selector}'")
     if cs.sampler not in ("independent", "uniform"):
         no(f"sampler '{cs.sampler}'")
@@ -1536,13 +1531,6 @@ def check_slice(cs: CompiledScene) -> None:
         no(f"normal modifier kinds {sorted(set(cs.nmod_kinds))}")
     if cs.media:
         no("participating media")
-    for l in cs.lights:
-        if l.type not in _SLICE_LIGHTS:
-            no(f"light type id {l.type} (light '{l.name}')")
-        # a textured env is in the slice without its CDF (the CDF variant
-        # has its own light type and raises in the compiler)
-        if l.type == LIGHT_ENV and getattr(l, "sky", None) is not None:
-            no(f"sky environment light '{l.name}'")
     fl = np.asarray(cs.tables["ent_flags"])
     if (((fl & 0x1) != 0) != ((fl & 0x4) != 0)).any():
         no("camera_visible != bounce_visible entity flags")
@@ -1551,8 +1539,8 @@ def check_slice(cs: CompiledScene) -> None:
 def _sun_direction(lobj) -> np.ndarray:
     """LoaderUtils::getDirection (LoaderUtils.cpp:140-156): direction |
     sun_direction | elevation/azimuth (Y-up EA frame)."""
-    raise NotImplementedError(
-        "light type 'sun' is not ported to ignis_tpu_torch yet")
+    from ignis_tpu_torch.light import skysun
+    return skysun.get_sun_direction(lobj)
 
 
 def _bake_texture(textures, img_tables, tid, bw=1024, bh=512):

@@ -5,7 +5,9 @@ package's bench scripts build (`__graft_entry__._demo_scene` and
 `_big_bench.make_scene`); those scripts import JAX, so the dictionaries are
 kept here.  `instanced_scene` is the deployment instancing exists for: many
 copies of one mesh.  `materials_scene` and `textured_scene` put the port's
-BSDFs and textures in the demo's box.
+BSDFs and textures in the demo's box; `daylight_scene` and `env_scene` the
+light breadth (sun, sky, spots under the light hierarchy; an HDR environment
+sampled by its table, many point lights under the flux CDF).
 """
 
 from __future__ import annotations
@@ -352,3 +354,161 @@ def instanced_scene(n_side=32, subdiv=3, second_subdiv=None):
         "bsdfs": bsdfs, "shapes": shapes, "entities": entities,
         "lights": lights,
     }
+
+
+def _room_walls(width, height, depth, window):
+    """Rectangles (shape dicts) of a closed width x height x depth room over
+    x in [-w/2, w/2], y in [0, h], z in [-d/2, d/2], every normal pointing
+    in, with a `window` = (w, h, sill height) opening centred in the wall at
+    z = +d/2, made of four rectangles around the hole."""
+    w2, d2 = 0.5 * width, 0.5 * depth
+    ww, wh, sill = window
+    top = sill + wh
+    rects = [
+        ("floor", width, depth, [0, 0, 0], [-90, 0, 0]),
+        ("ceiling", width, depth, [0, height, 0], [90, 0, 0]),
+        ("wall_left", depth, height, [-w2, 0.5 * height, 0], [0, 90, 0]),
+        ("wall_right", depth, height, [w2, 0.5 * height, 0], [0, -90, 0]),
+        ("wall_back", width, height, [0, 0.5 * height, -d2], [0, 0, 0]),
+        # the window wall, around the opening
+        ("win_left", w2 - 0.5 * ww, height,
+         [-0.5 * (w2 + 0.5 * ww), 0.5 * height, d2], [0, 180, 0]),
+        ("win_right", w2 - 0.5 * ww, height,
+         [0.5 * (w2 + 0.5 * ww), 0.5 * height, d2], [0, 180, 0]),
+        ("win_sill", ww, sill, [0, 0.5 * sill, d2], [0, 180, 0]),
+        ("win_lintel", ww, height - top, [0, 0.5 * (height + top), d2],
+         [0, 180, 0]),
+    ]
+    return [{"type": "rectangle", "name": n, "width": float(a),
+             "height": float(b),
+             "transform": [{"translate": [float(v) for v in t]},
+                           {"rotate": r}]}
+            for n, a, b, t, r in rects]
+
+
+def daylight_scene(sun_elevation=0.6, sun_azimuth=0.3):
+    """A furnished 6 x 3 x 8 m room under a sun and a Hosek-Wilkie sky,
+    through a 2 x 1.5 m window, and 256 spot lights in a 16 x 16 grid under
+    its ceiling: what a daylight / glare analysis renders (sun and sky
+    through a window) in an interior lit by many fixtures.  The walls are
+    rectangles around the window's opening; 16 icospheres of subdivision 3
+    (1,280 triangles each) stand on the floor: 20,500 triangles, so the
+    packet-BVH tables serve it.  Diffuse walls; among the spheres a
+    conductor and a dielectric.  The sun and the sky share elevation and
+    azimuth (radians); the sky (turbidity 3, ground albedo 0.8) is baked to
+    an image and sampled by its 2D CDF.  The spots are given by `power`
+    (cutoff 40 degrees, falloff 30).  Light selector: `hierarchy`.  Depth 6,
+    512x512 film."""
+    rng = np.random.default_rng(19)
+    width, height, depth = 6.0, 3.0, 8.0
+    shapes = _room_walls(width, height, depth, (2.0, 1.5, 0.9))
+    walls = [s["name"] for s in shapes]
+    bsdfs = [
+        {"type": "diffuse", "name": "plaster", "reflectance": [0.75, 0.73, 0.7]},
+        {"type": "diffuse", "name": "oak", "reflectance": [0.45, 0.3, 0.18]},
+        {"type": "conductor", "name": "steel", "material": "aluminum"},
+        {"type": "dielectric", "name": "glass", "int_ior": 1.5},
+    ]
+    entities = [{"name": n, "shape": n,
+                 "bsdf": "oak" if n == "floor" else "plaster"} for n in walls]
+    for i in range(16):
+        gx, gz = i % 4, i // 4
+        r = float(rng.uniform(0.25, 0.4))
+        c = [float(-2.1 + 1.4 * gx + rng.uniform(-0.2, 0.2)), r,
+             float(-2.4 + 1.6 * gz + rng.uniform(-0.2, 0.2))]
+        shapes.append({"type": "icosphere", "name": f"ball{i}", "center": c,
+                       "radius": r, "subdivisions": 3})
+        if i == 5:
+            mat = "steel"
+        elif i == 10:
+            mat = "glass"
+        else:
+            mat = f"paint{i}"
+            bsdfs.append({"type": "diffuse", "name": mat, "reflectance": [
+                float(v) for v in rng.uniform(0.2, 0.85, 3)]})
+        entities.append({"name": f"ball{i}", "shape": f"ball{i}",
+                         "bsdf": mat})
+    lights = [
+        {"type": "sun", "name": "sun", "elevation": sun_elevation,
+         "azimuth": sun_azimuth, "irradiance": [6.0, 5.7, 5.2]},
+        {"type": "sky", "name": "sky", "elevation": sun_elevation,
+         "azimuth": sun_azimuth, "turbidity": 3.0,
+         "ground": [0.8, 0.8, 0.8]},
+    ]
+    for i in range(256):
+        gx, gz = i % 16, i // 16
+        lights.append({
+            "type": "spot", "name": f"spot{i}",
+            "position": [float(-2.7 + 0.36 * gx), 2.9,
+                         float(-3.7 + 0.4933 * gz)],
+            "direction": [0.0, -1.0, 0.0],
+            "power": [float(rng.uniform(0.5, 1.5))] * 3,
+            "cutoff": 40.0, "falloff": 30.0})
+    return {
+        "technique": {"type": "path", "max_depth": 6,
+                      "light_selector": "hierarchy"},
+        "camera": {"type": "perspective", "fov": 70,
+                   "transform": {"lookat": {
+                       "origin": [0.0, 1.6, -3.6], "target": [0.0, 1.2, 4.0],
+                       "up": [0, 1, 0]}}},
+        "film": {"size": [512, 512]},
+        "bsdfs": bsdfs, "shapes": shapes, "entities": entities,
+        "lights": lights,
+    }
+
+
+def _env_image(path, seed, width=1024, height=512):
+    """An HDR environment for `env_scene`, made from a numpy seed: a
+    blue-to-white sky with soft clouds, a dark ground and a small bright sun.
+    Written to `path` as EXR."""
+    from ignis_tpu_torch.utils.exr import write_exr
+    rng = np.random.default_rng(seed)
+    v = (np.arange(height, dtype=np.float32) + 0.5) / height
+    u = (np.arange(width, dtype=np.float32) + 0.5) / width
+    vv, uu = np.meshgrid(v, u, indexing="ij")
+    sky = np.where(vv[..., None] > 0.5,
+                   np.stack([0.25 + 0.6 * vv, 0.4 + 0.5 * vv,
+                             0.95 + 0.0 * vv], -1),
+                   np.stack([0.08 + 0.04 * vv] * 3, -1))
+    clouds = np.zeros((height, width), np.float32)
+    for cu, cv, r in rng.uniform((0, 0.55, 0.02), (1, 0.95, 0.08), (24, 3)):
+        du = np.minimum(np.abs(uu - cu), 1.0 - np.abs(uu - cu))
+        clouds += np.exp(-(du * du + (vv - cv) ** 2) / (r * r))
+    sun = np.exp(-((uu - 0.62) ** 2 + (vv - 0.78) ** 2) / 2e-4)
+    img = (sky + 0.5 * np.minimum(clouds, 1.0)[..., None]
+           + sun[..., None] * np.float32([60.0, 52.0, 40.0])
+           + rng.uniform(0, 0.02, (height, width, 3))).astype(np.float32)
+    write_exr(path, img)
+
+
+def env_scene(dirpath, seed=7):
+    """The demo box (98 triangles: the Baldwin-Weber tables serve it)
+    relit by a 1024 x 512 HDR environment sampled by its summed-area table
+    (`"cdf_method": "sat"`), 64 point lights in an 8 x 8 grid and the demo's
+    plane area light, under the `cdf` light selector: a product shot under
+    an HDR environment map, seen from the box's open side.  The EXR is written into `dirpath`, made from
+    the numpy `seed`.  Depth 6."""
+    import os
+    path = os.path.join(str(dirpath), "env.exr")
+    _env_image(path, seed)
+    rng = np.random.default_rng(seed)
+    scene = demo_scene()
+    # from the open side of the box, as `materials_scene` looks in, wider
+    scene["camera"] = dict(scene["camera"], fov=60, transform=[
+        1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -3.85, 0, 0, 0, 1])
+    scene["film"] = {"size": [512, 512]}
+    scene["technique"] = dict(scene["technique"], light_selector="cdf")
+    scene["textures"] = [{"type": "image", "name": "env", "filename": path,
+                          "filter_type": "bilinear"}]
+    lights = [scene["lights"][0],
+              {"type": "env", "name": "env", "radiance": "env", "scale": 0.8,
+               "cdf_method": "sat", "transform": {"rotate": [0, 30, 0]}}]
+    for i in range(64):
+        gx, gz = i % 8, i // 8
+        lights.append({"type": "point", "name": f"pt{i}",
+                       "position": [float(-0.84 + 0.24 * gx), 0.7,
+                                    float(-0.84 + 0.24 * gz)],
+                       "intensity": [float(x) for x in
+                                     rng.uniform(0.01, 0.08, 3)]})
+    scene["lights"] = lights
+    return scene

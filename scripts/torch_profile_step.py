@@ -2,13 +2,16 @@
 """Where a `Runtime.step` of the PyTorch/CUDA port spends its time.
 
     python3 scripts/torch_profile_step.py \
-        [demo|big|both|instanced|sweep|materials|textured|all]
+        [demo|big|both|instanced|sweep|materials|textured|daylight|env|all]
 
 `both` is demo and big; `instanced` is the 1024-instance scene, `sweep` the
 32,002-triangle scene with un-accelerated tables, `materials` the demo box
 with the rough, plastic, phong, principled and two-lobe BSDFs, `textured` the
 same box with image, checkerboard, brick, noise and PExpr textures (its
-images written under `build/textured_scene/`); `all` is the six.  Every
+images written under `build/textured_scene/`), `daylight` the furnished room
+under a sun, a Hosek sky and 256 spots (light hierarchy), `env` the demo box
+under an SAT-sampled HDR environment and 64 points (its image written under
+`build/env_scene/`); `all` is the eight.  Every
 scene renders at 512x512.  Runs one warm-up step and then profiles one step
 of the scene(s) with `torch.profiler` (CPU + CUDA activities) and prints, per
 scene, one JSON line: the step's wall time (host clock closed by a
@@ -91,11 +94,11 @@ def main():
         text=True).stdout.strip(), flush=True)
     from ignis_tpu_torch.api import Runtime
     from ignis_tpu_torch.scenes import (
-        big_scene, demo_scene, instanced_scene, materials_scene,
-        textured_scene,
+        big_scene, daylight_scene, demo_scene, env_scene, instanced_scene,
+        materials_scene, textured_scene,
     )
     if which not in ("demo", "big", "both", "instanced", "sweep",
-                     "materials", "textured", "all"):
+                     "materials", "textured", "daylight", "env", "all"):
         print(f"unknown scene '{which}'", file=sys.stderr)
         return 2
     if which in ("demo", "both", "all"):
@@ -120,6 +123,13 @@ def main():
         os.makedirs(tex_dir, exist_ok=True)
         profile_step("textured", Runtime(textured_scene(tex_dir), width=512,
                                          height=512), 1)
+    if which in ("daylight", "all"):
+        profile_step("daylight", Runtime(daylight_scene()), 1)
+    if which in ("env", "all"):
+        env_dir = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "build", "env_scene")
+        os.makedirs(env_dir, exist_ok=True)
+        profile_step("env", Runtime(env_scene(env_dir)), 1)
     return 0
 
 

@@ -21,7 +21,9 @@ from ignis_tpu_torch.convert import (
 )
 from ignis_tpu_torch.scene.compile import check_slice
 from ignis_tpu_torch.scene.compile import load_and_compile as t_compile
-from ignis_tpu_torch.scenes import big_scene, demo_scene, textured_scene
+from ignis_tpu_torch.scenes import (
+    big_scene, daylight_scene, demo_scene, env_scene, textured_scene,
+)
 
 
 def _graft_demo():
@@ -90,11 +92,56 @@ def features_scene(d):
     return s
 
 
+def _flat_lit(lights, selector="uniform"):
+    s = copy.deepcopy(create_flat_scene())
+    s["technique"] = dict(s["technique"], light_selector=selector)
+    s["lights"] = lights
+    return s
+
+
+_SPOTS = [{"type": "spot", "name": f"s{i}", "position": [0.4 * i - 0.6, 0.2,
+                                                         -1.0 - 0.1 * i],
+           "direction": [0, 0, 1], "power": [1 + i, 1, 1]} for i in range(4)]
+_SUN = {"type": "sun", "name": "sun", "elevation": 0.5, "azimuth": 2.0}
+_SKY = {"type": "sky", "name": "sky", "elevation": 0.5, "azimuth": 2.0}
+# one case for each light type and each selector beyond the tables above
+LIGHTS = {
+    "light sun": lambda: _flat_lit([_SUN]),
+    "light directional": lambda: _flat_lit([
+        {"type": "directional", "name": "d", "direction": [0.1, 0.2, 1]}]),
+    "light spot": lambda: _flat_lit(_SPOTS[:1]),
+    "light sky": lambda: _flat_lit([_SKY]),
+    "light cie": lambda: _flat_lit([
+        {"type": "cie_cloudy", "name": "c", "has_ground": False},
+        {"type": "cie_clear", "name": "k", "elevation": 0.4},
+        {"type": "cie_intermediate", "name": "i", "azimuth": 1.0}]),
+    "light perez": lambda: _flat_lit([
+        {"type": "perez", "name": "p", "direct_irradiance": 500.0,
+         "diffuse_irradiance": 120.0}]),
+    "selector simple": lambda: _flat_lit(_SPOTS, "simple"),
+    "selector cdf": lambda: _flat_lit(_SPOTS + [_SUN, _SKY], "cdf"),
+    "selector hierarchy": lambda: _flat_lit(_SPOTS + [_SUN, _SKY],
+                                            "hierarchy"),
+}
+
+
+def env_cdf_scene(d):
+    """Textured environments with the default 2D CDF and with the SAT."""
+    import test_torch_textured_render as r
+    s = _flat_lit([{"type": "env", "name": "e", "radiance": "sky"},
+                   {"type": "env", "name": "f", "radiance": "sky",
+                    "cdf_method": "sat", "scale": 0.5}])
+    s["textures"] = [r._sky(d)]
+    return s
+
+
 SCENES = {"demo": demo_scene, "flat": create_flat_scene, "ico": ico_scene,
-          "dof": dof_scene, "lights": lights_scene}
+          "dof": dof_scene, "lights": lights_scene, "daylight": daylight_scene,
+          **LIGHTS}
 # scenes that write their images into a directory first
 TEXTURED = {"textured": textured_scene, "parameters": param_scene,
-            "features": features_scene}
+            "features": features_scene, "light env cdf": env_cdf_scene,
+            "env": env_scene}
 
 
 def _scene(name, tmp_path):
@@ -144,6 +191,9 @@ def test_compiled_tables_equal(name, tmp_path):
     assert vars(a.technique) == vars(b.technique)
     assert a.scene_radius() == b.scene_radius()
     np.testing.assert_array_equal(a.bbox_min, b.bbox_min)
+    assert a.lh_depth == b.lh_depth
+    assert [getattr(l, "sky", None) for l in a.lights] == \
+           [getattr(l, "sky", None) for l in b.lights]
 
 
 def test_type_constants_keep_their_values():
@@ -154,7 +204,8 @@ def test_type_constants_keep_their_values():
             assert getattr(jc, name) == getattr(tc, name), name
 
 
-@pytest.mark.parametrize("name", ["demo", "flat", "ico"] + sorted(TEXTURED))
+@pytest.mark.parametrize("name", ["demo", "flat", "ico"] + sorted(TEXTURED)
+                         + sorted(LIGHTS))
 def test_runtime_tables_equal(name, tmp_path):
     """bw_tables / build_bvh / build_packet_bvh / pack_tri_shade as the two
     Runtimes build them; for the textured scenes also the image tables
@@ -184,7 +235,16 @@ def test_runtime_tables_equal(name, tmp_path):
             tt["pb_nodes"].view(np.int32),
             build_pb_nodes(jt["pb_rows"]).view(np.int32))
     assert "tri_shade" in tt
-    _assert_tables_equal(jt, tt, keys=set(tt) - {"pb_nodes", "bw_ctree"})
+    # the light tree's codes are uint32: the port carries them in int64
+    _assert_tables_equal(jt, tt, keys=set(tt) - {"pb_nodes", "bw_ctree",
+                                                 "lh_codes"})
+    if "lh_codes" in tt:
+        assert tt["lh_codes"].dtype == np.int64
+        np.testing.assert_array_equal(tt["lh_codes"], jt["lh_codes"])
+    if name in LIGHTS or name in ("light env cdf", "env"):
+        assert trt.scene.lh_depth == jrt.scene.lh_depth
+        assert ("lh_child" in tt) == (name == "selector hierarchy")
+        return
     if name in TEXTURED:
         held = {k for k in tt if k.endswith("_img") or k == "params"
                 or k.startswith(("mat_tex", "mat_wrap_tex", "mat_nmod_"))}
@@ -233,6 +293,19 @@ def test_scene_from_metadata_copies_what_the_integrator_reads():
     assert vars(b.technique) == vars(a.technique)
 
 
+def test_scene_from_metadata_carries_the_light_state():
+    """`lh_depth` (set on the compiled scene after construction) and each
+    sky's parameters travel with the metadata: a hierarchy compiled by the
+    JAX package descends as deep in the port."""
+    a = j_compile(LIGHTS["selector hierarchy"](), 16, 16)
+    b = scene_from_metadata(a)
+    check_slice(b)
+    assert a.lh_depth >= 3 and b.lh_depth == a.lh_depth
+    assert [getattr(l, "sky", None) for l in b.lights] == \
+           [getattr(l, "sky", None) for l in a.lights]
+    assert scene_from_metadata(j_compile(demo_scene(), 16, 16)).lh_depth == 0
+
+
 def _flat_with(**over):
     s = copy.deepcopy(create_flat_scene())
     s["film"] = {"size": [8, 8]}
@@ -262,8 +335,6 @@ def _flat_bsdf(bsdf):
 OUT_OF_SLICE = {
     "technique ao": lambda: _flat_with(technique={"type": "ao"}),
     "technique volpath": lambda: _flat_with(technique={"type": "volpath"}),
-    "light selector": lambda: _flat_with(
-        technique={"type": "path", "light_selector": "simple"}),
     "sampler halton": lambda: _flat_with(
         film={"size": [8, 8], "sampler": "halton"}),
     "sampler mjitt": lambda: _flat_with(
@@ -272,17 +343,6 @@ OUT_OF_SLICE = {
         camera=dict(create_flat_scene()["camera"], type="orthogonal")),
     "media": lambda: _flat_with(media=[
         {"type": "homogeneous", "name": "fog", "sigma_s": [1, 1, 1]}]),
-    "light spot": lambda: _flat_with(lights=[
-        {"type": "spot", "name": "l", "position": [0, 0, 1]}]),
-    "light directional": lambda: _flat_with(lights=[
-        {"type": "directional", "name": "l", "direction": [0, 0, -1]}]),
-    "light sun": lambda: _flat_with(lights=[{"type": "sun", "name": "l"}]),
-    "light sky": lambda: _flat_with(lights=[{"type": "sky", "name": "l"}]),
-    "light perez": lambda: _flat_with(lights=[{"type": "perez", "name": "l"}]),
-    "light cie": lambda: _flat_with(lights=[
-        {"type": "cie_uniform", "name": "l"}]),
-    "light env texture": lambda: _flat_with(lights=[
-        {"type": "env", "name": "l", "radiance": "sky.exr"}]),
     "camera != bounce visibility": lambda: _flat_entity(camera_visible=False),
 }
 
@@ -356,6 +416,47 @@ MOVED_INTO_SLICE = {
     "textures": (lambda: _with_checker(_flat_material(
         {"type": "diffuse"})),
         lambda rt, g: [t["name"] for t in rt.scene.textures] == ["checker"]),
+    # the light breadth.  The scenes light the plane: the spot, the
+    # directional light and the sun now point at it, the selector case has
+    # lights to select from, the Perez sky has a clear sky's coefficients
+    # (the all-ones defaults overflow exp() in both packages) and the env
+    # texture case defines the texture it names (an undefined name is a
+    # PExpr with an unknown variable, which raises PExprError in both
+    # packages: test_env_texture_of_undefined_name_raises)
+    "light selector": (lambda: _flat_with(
+        technique={"type": "path", "light_selector": "simple"},
+        lights=[{"type": "point", "name": "a", "position": [0.3, 0, -1]},
+                {"type": "point", "name": "b", "position": [-0.3, 0, -1],
+                 "intensity": [3, 3, 3]},
+                {"type": "env", "name": "e", "radiance": [0.5, 0.5, 0.5]}]),
+        lambda rt, g: rt.scene.technique.light_selector == "simple"
+        and rt.tables["light_sel_cdf"].shape[0] == 2
+        and float(rt.tables["light_sel_pdf"][2]) == 0.5),
+    "light spot": (lambda: _flat_with(lights=[
+        {"type": "spot", "name": "l", "position": [0, 0, -1],
+         "direction": [0, 0, 1]}]),
+        lambda rt, g: int(rt.tables["light_type"][0]) == 6),
+    "light directional": (lambda: _flat_with(lights=[
+        {"type": "directional", "name": "l", "direction": [0, 0, 1]}]),
+        lambda rt, g: int(rt.tables["light_type"][0]) == 5),
+    "light sun": (lambda: _flat_with(lights=[
+        {"type": "sun", "name": "l", "direction": [0.2, 0.1, 1]}]),
+        lambda rt, g: int(rt.tables["light_type"][0]) == 7),
+    "light sky": (lambda: _flat_with(lights=[{"type": "sky", "name": "l"}]),
+                  lambda rt, g: int(rt.tables["light_type"][0]) == 4
+                  and tuple(rt.tables["light0_sky_img"].shape)
+                  == (256, 512, 3)),
+    "light perez": (lambda: _flat_with(lights=[
+        {"type": "perez", "name": "l", "clearness": 3.0,
+         "brightness": 0.3}]),
+        lambda rt, g: rt.scene.lights[0].sky["kind"] == "perez"),
+    "light cie": (lambda: _flat_with(lights=[
+        {"type": "cie_uniform", "name": "l"}]),
+        lambda rt, g: rt.scene.lights[0].sky["kind"] == "cie_uniform"),
+    "light env texture": (lambda: _with_checker(_flat_with(lights=[
+        {"type": "env", "name": "l", "radiance": "checker"}])),
+        lambda rt, g: int(rt.tables["light_type"][0]) == 4
+        and tuple(rt.tables["light0_cdf_c"].shape) == (512, 1024)),
 }
 
 
@@ -377,6 +478,19 @@ def test_moved_into_slice_scene_renders(what):
     assert np.isfinite(img).all()
     if scene.get("lights"):
         assert img.mean() > 0
+
+
+def test_env_texture_of_undefined_name_raises():
+    """An env radiance naming no texture is a PExpr whose variable is
+    unknown: its CDF bake raises PExprError, as in the JAX package."""
+    from ignis_tpu.texture.pexpr import PExprError as JPExprError
+    from ignis_tpu_torch.texture.pexpr import PExprError
+    scene = _flat_with(lights=[{"type": "env", "name": "l",
+                                "radiance": "sky.exr"}])
+    with pytest.raises(JPExprError, match="sky"):
+        j_compile(copy.deepcopy(scene))
+    with pytest.raises(PExprError, match="sky"):
+        tapi.Runtime(scene, device="cpu")
 
 
 def test_shadow_only_flags_stay_in_the_slice():
