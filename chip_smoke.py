@@ -39,7 +39,16 @@ under the flux CDF (the Baldwin-Weber kernels), through `Runtime.step`, each
 held to its plain traversal; the hierarchy's pdfs, the CDF tables' sample /
 pdf agreement and CPU-vs-card light samples checked on the card; and the
 gradient of the room's differentiable render with respect to the light rows
-and the baked sky image.  Every phase prints one
+and the baked sky image.  Then participating media (`media`): the demo box
+under the `volpath` technique with a scattering and an absorb-only medium in
+glass spheres, a 128^3 NanoVDB cloud under delta tracking (ratio tracking for
+its transmittance) and an emissive 64^3 voxel grid, through `Runtime.step`
+on the Baldwin-Weber kernels, held to its plain traversal; the media
+functions CPU vs card; the gradient with respect to the media's rows and
+shader rows.  Last measured materials (`measured`): the daylight room with a
+Klems and a TensorTree pane in its window and Dupuy-Jakob spheres, through
+`Runtime.step` on the packet-BVH kernels, held to its plain traversal, and
+its gradient with respect to the material colors.  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -79,6 +88,10 @@ CDF_REL = 1e-5
 HIER_SUM_ABS = 1e-4
 HIER_PDF_REL = 1e-5
 DIR_ABS = 1e-5            # CPU vs card: sampled light directions
+MEDIA_LANES = 1 << 18     # lanes of the media box's gradient
+MEASURED_LANES = 1 << 18  # lanes of the measured room's gradient
+POS_ABS = 1e-5            # CPU vs card: medium samples' positions and
+                          # transmittance
 # the path technique's clamp of each contribution in the `train` phase: a
 # few unclamped firefly lanes (up to 6,064 in a 512x512 render of the
 # materials scene on an H100, the JAX package's render the same there:
@@ -750,6 +763,8 @@ PATH_KERNELS = {
     "textured": ("bw_closest", "bw_any"),
     "daylight": ("packet_bvh_closest", "packet_bvh_any"),
     "env": ("bw_closest", "bw_any"),
+    "media": ("bw_closest", "bw_any"),
+    "measured": ("packet_bvh_closest", "packet_bvh_any"),
 }
 
 
@@ -1191,6 +1206,174 @@ def lights_phase(dev, wrappers, runs, bw, pb):
                            grad=round(time.perf_counter() - t3, 3)))
 
 
+def media_lanes(rt, n, seed):
+    """`n` seeded lanes in the media of `rt`'s scene: each lane's medium,
+    a segment that starts in the bounding box of the entity holding it and
+    runs 0.05 to 1 along a random direction, seeds, counters, the active
+    mask.  Host tensors."""
+    tb = rt.scene.tables
+    rng = np.random.default_rng(seed)
+    nmed = len(rt.scene.media)
+    mid = rng.integers(0, nmed, n).astype(np.int32)
+    tri_ent = np.asarray(tb["tri_ent"])
+    corners = np.stack([tb["tri_v0"], tb["tri_v0"] + tb["tri_e1"],
+                        tb["tri_v0"] + tb["tri_e2"]])
+    lo, hi = np.zeros((nmed, 3)), np.zeros((nmed, 3))
+    for mi in range(nmed):
+        ent = int(np.nonzero(np.asarray(tb["ent_inner_medium"]) == mi)[0][0])
+        c = corners[:, tri_ent == ent].reshape(-1, 3)
+        lo[mi], hi[mi] = c.min(0), c.max(0)
+    p0 = rng.uniform(lo[mid], hi[mid])
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    p1 = p0 + d * rng.uniform(0.05, 1.0, (n, 1))
+    return dict(mid=torch.from_numpy(mid),
+                p0=torch.from_numpy(p0.astype(np.float32)),
+                p1=torch.from_numpy(p1.astype(np.float32)),
+                seed=torch.from_numpy(rng.integers(0, 2**32, n)
+                                      .astype(np.int64)),
+                ctr=torch.from_numpy(rng.integers(0, 2**20, n)
+                                     .astype(np.int64)),
+                active=torch.from_numpy(rng.uniform(size=n) < 0.9))
+
+
+def media_cpu_vs_card(rt, n, seed):
+    """`medium_sample`, `medium_events` and `medium_eval` (ratio tracking
+    for the delta-tracked cloud, the quadrature for the voxel grid, closed
+    forms for the homogeneous media) on the same `n` lanes of `rt`'s scene
+    with its tables on the card and on the CPU: the same collisions, events
+    and counters; positions and transmittance within POS_ABS."""
+    from ignis_tpu_torch.convert import tables_from_numpy
+    from ignis_tpu_torch.medium import (
+        medium_coefficients, medium_eval, medium_events, medium_sample,
+    )
+    host = media_lanes(rt, n, seed)
+    out = {}
+    for dev, tb in (("cpu", tables_from_numpy(rt.scene.tables, "cpu")),
+                    ("card", rt.tables)):
+        d = {k: v.to(rt.device if dev == "card" else "cpu")
+             for k, v in host.items()}
+        sa, ss, _ = medium_coefficients(rt.scene, tb, d["mid"], {})
+        ms, c = medium_sample(rt.scene, tb, d["mid"], sa, ss, d["seed"],
+                              d["ctr"], d["p0"], d["p1"], d["active"])
+        ev, c = medium_events(ms, d["seed"], c)
+        tr = medium_eval(rt.scene, tb, d["mid"], sa, ss, d["p0"], d["p1"],
+                         seed=d["seed"], counter=d["ctr"])
+        code = (ev["absorb"].to(torch.int8) + 2 * ev["scatter"].to(torch.int8)
+                + 3 * ev["null"].to(torch.int8))
+        out[dev] = (ms["valid"].cpu(), code.cpu(), c.cpu(), ms["pos"].cpu(),
+                    tr.cpu())
+    (va, ea, ca, pa, ta), (vb, eb, cb, pb_, tb_) = out["cpu"], out["card"]
+    diff = dict(valid_differ=int((va != vb).sum()),
+                events_differ=int((ea != eb).sum()),
+                counters_differ=int((ca != cb).sum()))
+    both = va & vb
+    pos_err = float((pa[both] - pb_[both]).abs().max()) if both.any() else 0.0
+    tr_err = float((ta - tb_).abs().max())
+    if any(diff.values()) or not (pos_err <= POS_ABS and tr_err <= POS_ABS):
+        fail(f"media: CPU vs card: {diff}, positions by {pos_err}, "
+             f"transmittance by {tr_err} (> {POS_ABS}?)")
+    return dict(lanes=n, **diff, pos_max_abs_err=pos_err,
+                transmittance_max_abs_err=tr_err,
+                collisions=int(va.sum()),
+                events={k: int((ea == i).sum()) for i, k in enumerate(
+                    ("none", "absorb", "scatter", "null"))},
+                lanes_by_medium=[int((host["mid"] == i).sum())
+                                 for i in range(len(rt.scene.media))])
+
+
+def media_phase(dev, wrappers, runs, bw):
+    """Participating media through `Runtime.step` under `volpath`:
+    `media_scene()` (the demo box on the Baldwin-Weber kernels with a
+    scattering and an absorb-only homogeneous medium in glass spheres, a
+    128^3 NanoVDB cloud under delta and ratio tracking and an emissive 64^3
+    voxel grid): steps, a profiled step, the kernel-vs-plain means at
+    512x512, the CPU-vs-card media functions and the gradient w.r.t.
+    `medium_data` and `medium_shader`.  Adds the path's run to `runs` and
+    emits the `media` line."""
+    from ignis_tpu_torch.api import Runtime
+    from ignis_tpu_torch.scenes import media_scene
+    t0 = time.perf_counter()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "media_scene")
+    os.makedirs(d, exist_ok=True)
+    rt = Runtime(media_scene(d), width=FILM, height=FILM, device=dev)
+    t1 = time.perf_counter()
+    steps = 1
+    runs["media"] = timed_steps("media", rt, steps, 1, wrappers)
+    t2 = time.perf_counter()
+    prof = profiled_step(rt, 1)
+    t3 = time.perf_counter()
+    means = kernel_and_plain_means("media", rt, 1, dict(
+        bw_closest=bw.bw_closest_plain, bw_any=bw.bw_any_plain), max_rel=0.0)
+    t4 = time.perf_counter()
+    check = media_cpu_vs_card(rt, N_RAYS, 21)
+    t5 = time.perf_counter()
+    grad = fwdbwd("media", rt, MEDIA_LANES, wrappers, lambda: bw_plain(bw),
+                  ("medium_data", "medium_shader"), reps=1)
+    emit("media", t0, **runs["media"], **prof, **means, cpu_vs_card=check,
+         gradient=grad,
+         kernel_launches_per_step={
+             k: runs["media"]["launches"][k] / (steps + 1)
+             for k in PATH_KERNELS["media"]},
+         part_seconds=dict(scene=round(t1 - t0, 3), steps=round(t2 - t1, 3),
+                           profile=round(t3 - t2, 3),
+                           means=round(t4 - t3, 3),
+                           checks=round(t5 - t4, 3),
+                           grad=round(time.perf_counter() - t5, 3)),
+         tris=int(rt.tables["tri_v0"].shape[0]),
+         media=[dict(type=m["type"], method=m.get("method"),
+                     shader=m.get("shader"),
+                     interpolate=m.get("interpolate")) for m in rt.scene.media],
+         grid_bytes={k: int(v.numel() * v.element_size())
+                     for k, v in rt.tables.items() if k.startswith("vol")},
+         max_depth=rt.scene.technique.max_depth)
+
+
+def measured_phase(dev, wrappers, runs, pb):
+    """Measured materials through `Runtime.step`: `measured_scene()` (the
+    daylight room on the packet-BVH kernels, its window glazed by a Klems
+    and a TensorTree pane, its 16 spheres in a Dupuy-Jakob BRDF): steps, a
+    profiled step, the kernel-vs-plain means at 512x512 and the gradient
+    w.r.t. `mat_colors`.  Adds the path's run to `runs` and emits the
+    `measured` line."""
+    from ignis_tpu_torch.api import Runtime
+    from ignis_tpu_torch.scenes import measured_scene
+    t0 = time.perf_counter()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "measured_scene")
+    os.makedirs(d, exist_ok=True)
+    rt = Runtime(measured_scene(d), width=FILM, height=FILM, device=dev)
+    t1 = time.perf_counter()
+    steps = 2
+    runs["measured"] = timed_steps("measured", rt, steps, 1, wrappers)
+    t2 = time.perf_counter()
+    prof = profiled_step(rt, 1)
+    t3 = time.perf_counter()
+    means = kernel_and_plain_means("measured", rt, 1, dict(
+        packet_bvh_closest=pb.packet_bvh_closest_plain,
+        packet_bvh_any=pb.packet_bvh_any_plain), max_rel=0.0)
+    t4 = time.perf_counter()
+    grad = fwdbwd("measured", rt, MEASURED_LANES, wrappers,
+                  lambda: pb_plain(pb), ("mat_colors",), reps=1)
+    emit("measured", t0, **runs["measured"], **prof, **means, gradient=grad,
+         kernel_launches_per_step={
+             k: runs["measured"]["launches"][k] / (steps + 1)
+             for k in PATH_KERNELS["measured"]},
+         part_seconds=dict(scene=round(t1 - t0, 3), steps=round(t2 - t1, 3),
+                           profile=round(t3 - t2, 3),
+                           means=round(t4 - t3, 3),
+                           grad=round(time.perf_counter() - t4, 3)),
+         tris=int(rt.tables["tri_v0"].shape[0]),
+         bsdf_types=rt.scene.bsdf_types,
+         klems_patches=[int(i["front_transmission_shape"][0])
+                        for i in rt.scene.klems_info.values()],
+         tensortree_nodes=[int(rt.tables[f"tt{m}_front_transmission_nodes"]
+                               .shape[0]) for m in rt.scene.tensortree_info],
+         djmeasured=[dict(n_theta=i["n_theta"], n_phi=i["n_phi"])
+                     for i in rt.scene.djmeasured_info.values()])
+
+
 def registry_change(rt, name, value, spi, m0):
     """Set a registry parameter and render the next frame (`render_mean`;
     `m0` is its mean before): the frame must change, and every table stay
@@ -1479,6 +1662,12 @@ def main():
 
     # ---- 12. lights: the light breadth through Runtime.step
     lights_phase(dev, wrappers, runs, bw, pb)
+
+    # ---- 13. media: volpath with homogeneous, NanoVDB and voxel-grid media
+    media_phase(dev, wrappers, runs, bw)
+
+    # ---- 14. measured: Klems, TensorTree and Dupuy-Jakob materials
+    measured_phase(dev, wrappers, runs, pb)
 
     # ---- the kernels line: launches are those of the main paths' runs, in
     # all and for each path that has to launch the kernel

@@ -1,4 +1,5 @@
-"""Runtime API.  Counterpart of ignis_tpu/api.py for the `path` technique.
+"""Runtime API.  Counterpart of ignis_tpu/api.py for the `path` and `volpath`
+techniques.
 
 `Runtime` owns the compiled scene, builds the acceleration tables, drives
 progressive accumulation (`step()`) and exposes ray-list tracing (`trace()`).

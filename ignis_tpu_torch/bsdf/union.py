@@ -3,7 +3,10 @@
 Counterpart of ignis_tpu/bsdf/union.py for the `diffuse`, `dielectric`
 (smooth, thin and rough), `conductor` (smooth and rough, incl. `mirror`,
 which compiles to a conductor with eta = 0, k = 1), `phong`, `plastic`
-(smooth and rough), `principled` and `passthrough` types.  The small union of
+(smooth and rough), `principled` and `passthrough` types, and the measured
+`klems`, `tensortree` and `djmeasured` BSDFs (one table set a material,
+`scene.klems_info` / `tensortree_info` / `djmeasured_info`; djmeasured's
+eval carries no cosine term, as in the JAX package).  The small union of
 BSDF types present in the scene is evaluated for all lanes with masked
 selects; only the types that appear in the compiled scene (static
 `bsdf_types` list) are computed.  `lobe="b"` evaluates a two-lobe material's
@@ -28,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from ignis_tpu_torch.bsdf import klems_bsdf, tensortree_bsdf
 from ignis_tpu_torch.bsdf import microfacet as mf
 from ignis_tpu_torch.core import rng
 from ignis_tpu_torch.core.dgather import gather_rows
@@ -40,6 +44,7 @@ from ignis_tpu_torch.core.warp import (
     cosine_hemisphere_pdf, cosine_power_hemisphere_pdf,
     sample_cosine_hemisphere, sample_cosine_power_hemisphere,
 )
+from ignis_tpu_torch.measured import djmeasured
 from ignis_tpu_torch.scene.compile import (
     BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_DJMEASURED,
     BSDF_KLEMS, BSDF_PASSTHROUGH, BSDF_PHONG, BSDF_PLASTIC, BSDF_PRINCIPLED,
@@ -67,16 +72,6 @@ _SAMPLE_DRAWS = {
 }
 
 _SPECULAR = {BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PASSTHROUGH}
-_PORTED = {BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PHONG,
-           BSDF_PASSTHROUGH, BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC,
-           BSDF_PLASTIC, BSDF_ROUGH_PLASTIC, BSDF_PRINCIPLED}
-
-
-def _check_ported(bsdf_types):
-    for t in set(bsdf_types):
-        if t not in _PORTED:
-            raise NotImplementedError(
-                f"BSDF type id {t} is not ported to ignis_tpu_torch yet")
 
 
 def sample_draw_counts(bsdf_types):
@@ -605,9 +600,30 @@ def _principled():
     return principled
 
 
+# measured types: the scene's static info of their materials, the table
+# prefix, and eval / pdf / sample (djmeasured's take no `up` vector)
+_MEASURED = {
+    BSDF_KLEMS: ("klems_info", "klems", klems_bsdf.klems_eval,
+                 klems_bsdf.klems_pdf, klems_bsdf.klems_sample),
+    BSDF_TENSORTREE: ("tensortree_info", "tt",
+                      tensortree_bsdf.tensortree_eval,
+                      tensortree_bsdf.tensortree_pdf,
+                      tensortree_bsdf.tensortree_sample),
+    BSDF_DJMEASURED: ("djmeasured_info", "dj", djmeasured.dj_eval,
+                      djmeasured.dj_pdf, djmeasured.dj_sample),
+}
+
+
+def _measured(scene, t, what):
+    """(material id, static info, the type's eval (0), pdf (1) or sample
+    (2), table prefix) for each material of measured type `t`."""
+    key, prefix, *fns = _MEASURED[t]
+    return [(mid, info, fns[what], f"{prefix}{mid}")
+            for mid, info in getattr(scene, key, {}).items()]
+
+
 def bsdf_eval(scene, tables, mat_type, surf, in_dir, out_dir, lobe="a"):
     bsdf_types = lobe_types(scene, lobe)
-    _check_ported(bsdf_types)
     colors, scalars = _params(tables, surf, lobe)
     out = torch.zeros_like(in_dir)
     for t in sorted(set(bsdf_types)):
@@ -628,13 +644,22 @@ def bsdf_eval(scene, tables, mat_type, surf, in_dir, out_dir, lobe="a"):
                               t == BSDF_ROUGH_PLASTIC)
         elif t == BSDF_PRINCIPLED:
             v = _principled().principled_eval(ct, sc, surf, in_dir, out_dir)
+        else:
+            v = torch.zeros_like(in_dir)
+            for mid, info, fn, pre in _measured(scene, t, 0):
+                if t == BSDF_DJMEASURED:
+                    kv = fn(tables, pre, info, ct[:, 0], surf, in_dir,
+                            out_dir)
+                else:
+                    kv = fn(tables, pre, info, ct[:, 0], info["up"], surf,
+                            in_dir, out_dir)
+                v = torch.where((surf["mat_id"] == mid)[..., None], kv, v)
         out = torch.where(m[..., None], v, out)
     return out
 
 
 def bsdf_pdf(scene, tables, mat_type, surf, in_dir, out_dir, lobe="a"):
     bsdf_types = lobe_types(scene, lobe)
-    _check_ported(bsdf_types)
     colors, scalars = _params(tables, surf, lobe)
     out = torch.zeros(mat_type.shape, dtype=torch.float32,
                       device=mat_type.device)
@@ -656,6 +681,15 @@ def bsdf_pdf(scene, tables, mat_type, surf, in_dir, out_dir, lobe="a"):
                              t == BSDF_ROUGH_PLASTIC)
         elif t == BSDF_PRINCIPLED:
             v = _principled().principled_pdf(ct, sc, surf, in_dir, out_dir)
+        else:
+            v = torch.zeros_like(out)
+            for mid, info, fn, pre in _measured(scene, t, 1):
+                if t == BSDF_DJMEASURED:
+                    kv = fn(tables, pre, info, surf, in_dir, out_dir)
+                else:
+                    kv = fn(tables, pre, info, info["up"], surf, in_dir,
+                            out_dir)
+                v = torch.where(surf["mat_id"] == mid, kv, v)
         out = torch.where(m, v, out)
     return out
 
@@ -667,7 +701,6 @@ def bsdf_sample(scene, tables, mat_type, surf, seed, counter, out_dir,
     Returns (in_dir, pdf, weight, eta, valid, new_counter).
     """
     bsdf_types = lobe_types(scene, lobe)
-    _check_ported(bsdf_types)
     if active is None:
         active = torch.ones_like(mat_type, dtype=torch.bool)
     colors, scalars = _params(tables, surf, lobe)
@@ -715,8 +748,23 @@ def bsdf_sample(scene, tables, mat_type, surf, seed, counter, out_dir,
         elif t == BSDF_PRINCIPLED:
             r = _principled().principled_sample(ct, sc, surf, us[0], us[1],
                                                 us[2], out_dir)
-        else:  # BSDF_PASSTHROUGH
+        elif t == BSDF_PASSTHROUGH:
             r = _passthrough_sample(out_dir)
+        else:
+            r = [torch.zeros_like(out_dir), torch.zeros_like(pdf),
+                 torch.zeros_like(out_dir), torch.ones_like(pdf),
+                 torch.zeros_like(valid)]
+            for mid, info, fn, pre in _measured(scene, t, 2):
+                if t == BSDF_DJMEASURED:
+                    kr = fn(tables, pre, info, ct[:, 0], surf, us[0], us[1],
+                            out_dir)
+                else:
+                    kr = fn(tables, pre, info, ct[:, 0], info["up"], surf,
+                            us[0], us[1], us[2], out_dir)
+                km = surf["mat_id"] == mid
+                for i, x in enumerate(kr):
+                    r[i] = torch.where(km[..., None] if x.ndim == 2 else km,
+                                       x, r[i])
         mc = m[..., None]
         in_dir = torch.where(mc, r[0], in_dir)
         pdf = torch.where(m, r[1], pdf)

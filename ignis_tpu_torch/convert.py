@@ -12,6 +12,7 @@ arrays and a metadata object, read by attribute.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -83,7 +84,8 @@ def scene_from_metadata(meta) -> CompiledScene:
     """The port's `CompiledScene` from any object that carries the metadata
     the integrator reads: width, height, sampler, camera, technique,
     bsdf_types, lights (with a sky's parameters), lh_depth, param_registry,
-    bbox_min/max, textures, media and the compiled numpy `tables`."""
+    bbox_min/max, textures, media, the measured materials' info and the
+    compiled numpy `tables`."""
     cam = _copy_dataclass(CameraConfig, meta.camera)
     for extra in ("auto_frame", "fov", "fov_vertical", "aspect"):
         if hasattr(meta.camera, extra):
@@ -116,6 +118,10 @@ def scene_from_metadata(meta) -> CompiledScene:
     cs.param_registry = dict(getattr(meta, "param_registry", {}) or {})
     cs.parameter_values = dict(getattr(meta, "parameter_values", {}) or {})
     cs.instanced = getattr(meta, "instanced", None)
+    # the measured materials' static info (totals, up vector, slice counts),
+    # copied: the port keeps derived facts (a tree's depth) beside them
+    for key in ("klems_info", "tensortree_info", "djmeasured_info"):
+        setattr(cs, key, copy.deepcopy(dict(getattr(meta, key, {}) or {})))
     return cs
 
 

@@ -1,4 +1,4 @@
-"""Wavefront path tracer (the `path` technique).
+"""Wavefront path tracer (the `path` and `volpath` techniques).
 
 Counterpart of ignis_tpu/render/integrator.py.  Every bounce processes a
 fixed-capacity ray wave with masked lanes.  Technique logic (NEE, MIS
@@ -28,7 +28,10 @@ the instanced pool's (`tl_inst` -> `ops.tlas`) and the analytic spheres'
 travel in the prim id past the soup's range.  The kernel wrappers launch CUDA
 for tensors on the card and run their plain versions for tensors on the CPU.
 
-Payload: inv_pdf, contrib, depth (starts at 1), eta.
+Payload: inv_pdf, contrib, depth (starts at 1), eta; under `volpath` also
+the lane's medium (-1 vacuum), its volume depth and the null-flight flag.  A
+negative `inv_pdf` (-1) marks a vertex in a medium: every surface bounce
+writes +0.0, never -0.0.
 """
 
 from __future__ import annotations
@@ -42,13 +45,17 @@ from ignis_tpu_torch.bsdf import (
 from ignis_tpu_torch.core import rng
 from ignis_tpu_torch.core.dgather import gather_rows
 from ignis_tpu_torch.core.vec import (
-    FLT_EPS, FLT_MAX, cross, device_scalar, dot, length, normalize,
-    orthonormal_basis, safe_div, transform_normal, transform_point,
-    transform_vector,
+    FLT_EPS, FLT_MAX, cross, device_const, device_scalar, dot, length,
+    maximum, normalize, orthonormal_basis, safe_div, transform_normal,
+    transform_point, transform_vector,
 )
 from ignis_tpu_torch.light import (
     env_emission_and_pdf, light_pdf_direct_solid, light_select_pdf,
     sample_light_direct, select_light,
+)
+from ignis_tpu_torch.medium import (
+    medium_coefficients, medium_eval, medium_eval_inf, medium_events,
+    medium_sample, phase_sample,
 )
 from ignis_tpu_torch.ops.bw_intersect import bw_any, bw_closest
 from ignis_tpu_torch.ops.intersect import intersect_any, intersect_closest
@@ -325,15 +332,21 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
     """One wavefront bounce for all lanes of `st`.
 
     st keys: org, dir, tmin, tmax, alive, seed, counter, inv_pdf, contrib,
-    depth, eta.  Returns (splat (N,3), st_next, quants): splat holds this
-    bounce's radiance contributions (miss / emissive / NEE) for alive lanes,
-    quants the per-bounce counters [hits, misses, shadow rays, occluded
-    shadow rays, bounce continuations].
+    depth, eta, medium, voldepth, nullfl.  Returns (splat (N,3), st_next,
+    quants): splat holds this bounce's radiance contributions (miss /
+    emissive / NEE) for alive lanes, quants the per-bounce counters [hits,
+    misses, shadow rays, occluded shadow rays, bounce continuations].
+
+    Under `volpath` the bounce also carries medium transport: transmittance
+    on every contribution, distance-sampled absorption, scatter and null
+    events, and the medium-interface crossing on transmissive surface
+    bounces.
     """
     tech = scene.technique
-    if tech.type != "path":
+    if tech.type not in ("path", "volpath"):
         raise NotImplementedError(
             f"technique '{tech.type}' is not ported to ignis_tpu_torch yet")
+    is_vol = tech.type == "volpath"
     num_lights = scene.num_lights
     inf_ids = [i for i, l in enumerate(scene.lights)
                if l.infinite and not l.delta]
@@ -363,6 +376,23 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
     surf = _surface_at(tables, prim_s, org, d, t_safe, u, v)
     mat_type, specular = prepare_surface(scene, tables, surf, d, org)
 
+    # ---- the coefficients of each lane's current medium (volpath)
+    if is_vol:
+        med = st["medium"]
+        mctx = _pexpr_ctx(tables, surf, org, d)
+        m_sa, m_ss, m_g = medium_coefficients(scene, tables, med, mctx)
+        hitvol = medium_eval(scene, tables, med, m_sa, m_ss, org,
+                             surf["point"], seed=seed, counter=counter)
+        inf_tr = medium_eval_inf(scene, tables, med, m_sa, m_ss, org, d)
+        was_medium = torch.signbit(inv_pdf)
+        inv_pdf_eff = maximum(inv_pdf, 0.0)
+        # lanes continuing a null flight re-trace the same segment: the
+        # surface, miss and NEE splats fired at its first arrival
+        nullfl = st["nullfl"]
+        fresh = ~nullfl
+    else:
+        inv_pdf_eff = inv_pdf
+
     # ---- on_miss: infinite, non-delta lights
     if inf_ids:
         miss_color = zeros3
@@ -370,12 +400,14 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
             emit, pdf_s = env_emission_and_pdf(scene, tables, lid, d)
             if tech.enable_nee and num_lights > 0:
                 lpdf = tables["light_sel_pdf"][lid]
-                mis = 1.0 / (1.0 + inv_pdf * lpdf * pdf_s)
+                mis = 1.0 / (1.0 + inv_pdf_eff * lpdf * pdf_s)
             else:
                 mis = torch.ones(n, dtype=torch.float32, device=dev)
-            miss_color = miss_color + _handle_color(
-                contrib * emit * mis[..., None], tech.clamp)
-        splat = splat + torch.where(miss[..., None], miss_color, zeros3)
+            em = contrib * emit * inf_tr if is_vol else contrib * emit
+            miss_color = miss_color + _handle_color(em * mis[..., None],
+                                                    tech.clamp)
+        on_miss = miss & fresh if is_vol else miss
+        splat = splat + torch.where(on_miss[..., None], miss_color, zeros3)
 
     # ---- on_hit: emissive surfaces
     if any(l.type in (1, 2, 8) for l in scene.lights):
@@ -389,18 +421,24 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
         radiance = _area_light_radiance(scene, tables, lidx)
         if tech.enable_nee:
             lpdf = light_select_pdf(scene, tables, lidx, org)
-            mis = 1.0 / (1.0 + inv_pdf * lpdf * pdf_s)
+            mis = 1.0 / (1.0 + inv_pdf_eff * lpdf * pdf_s)
         else:
             mis = torch.ones(n, dtype=torch.float32, device=dev)
         emit_ok = (hit & is_emissive & surf["is_entering"]
                    & (dot_n > FLT_EPS))
-        ec = _handle_color(contrib * radiance * mis[..., None], tech.clamp)
+        em = contrib * radiance
+        if is_vol:
+            emit_ok = emit_ok & fresh
+            em = em * hitvol
+        ec = _handle_color(em * mis[..., None], tech.clamp)
         splat = splat + torch.where(emit_ok[..., None], ec, zeros3)
 
     # ---- on_shadow: NEE
     do_nee = (tech.enable_nee and num_lights > 0)
     if do_nee:
         nee_active = hit & ~specular & (depth + 1 <= tech.max_depth)
+        if is_vol:
+            nee_active = nee_active & fresh
         lsel, sel_pdf, counter = select_light(
             scene, tables, seed, counter, nee_active,
             from_pos=surf["point"])
@@ -410,13 +448,24 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
         pdf_l_s = ls["pdf_solid"] * sel_pdf
         out_dir = -d
         pdf_e_s = bsdf_pdf(scene, tables, mat_type, surf, ls["dir"], out_dir)
-        mis = torch.where(ls["delta"], torch.ones_like(pdf_e_s),
+        no_mis = ls["delta"] | was_medium if is_vol else ls["delta"]
+        mis = torch.where(no_mis, torch.ones_like(pdf_e_s),
                           1.0 / (1.0 + safe_div(pdf_e_s, pdf_l_s)))
         factor = safe_div(ls["pdf_value"], pdf_l_s)
         bsdf_c = bsdf_eval(scene, tables, mat_type, surf, ls["dir"], out_dir)
         sc = _handle_color(
             ls["intensity"] * contrib * bsdf_c * (mis * factor)[..., None],
             tech.clamp)
+        if is_vol:
+            # attenuated by the transmittance to this hit and toward the
+            # light
+            seg_fin = medium_eval(scene, tables, med, m_sa, m_ss,
+                                  surf["point"], ls["pos"], seed=seed,
+                                  counter=counter)
+            seg_inf = medium_eval_inf(scene, tables, med, m_sa, m_ss,
+                                      surf["point"], ls["dir"])
+            seg = torch.where(ls["infinite"][..., None], seg_inf, seg_fin)
+            sc = sc * hitvol * seg
         shadow_valid = (nee_active & (pdf_l_s > FLT_EPS)
                         & (ls["cos"] > FLT_EPS))
         shadow_contrib = torch.where(shadow_valid[..., None], sc, zeros3)
@@ -430,28 +479,35 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
     # ---- on_bounce
     can_bounce = hit & (depth + 1 <= tech.max_depth)
     out_dir = -d
-    in_dir, b_pdf, b_weight, b_eta, b_valid, counter = bsdf_sample(
-        scene, tables, mat_type, surf, seed, counter, out_dir,
-        active=can_bounce)
-    new_contrib = contrib * b_weight
-    # russian roulette (pbrt v4 variant); detached: a sampling decision, not
-    # part of the integrand
-    rr_base = torch.amax(new_contrib * (eta * eta)[..., None], dim=-1)
-    rr_prob = torch.where(depth + 1 > tech.min_depth,
-                          torch.clamp(rr_base, 0.05, 0.95),
-                          torch.ones_like(rr_base)).detach()
-    u_rr, counter_rr = rng.next_f32(seed, counter)
-    rr_draw = can_bounce & b_valid
-    counter = torch.where(rr_draw, counter_rr, counter)
-    survive = u_rr < rr_prob
-    alive_next = rr_draw & survive
-    org_next = surf["point"]
-    dir_next = in_dir
-    contrib_next = new_contrib * safe_div(1.0, rr_prob)[..., None]
-    inv_pdf_next = torch.where(specular, torch.zeros_like(b_pdf),
-                               safe_div(1.0, b_pdf))
-    depth_next = depth + 1
-    eta_next = eta * b_eta
+    if is_vol:
+        bounce = _volpath_bounce(scene, tables, st, surf, mat_type, specular,
+                                 can_bounce, counter, m_sa, m_ss, m_g, hitvol)
+        counter = bounce.pop("counter")
+        splat = splat + bounce.pop("splat")
+        alive_next = bounce["alive"]
+    else:
+        in_dir, b_pdf, b_weight, b_eta, b_valid, counter = bsdf_sample(
+            scene, tables, mat_type, surf, seed, counter, out_dir,
+            active=can_bounce)
+        new_contrib = contrib * b_weight
+        # russian roulette (pbrt v4 variant); detached: a sampling decision,
+        # not part of the integrand
+        rr_base = torch.amax(new_contrib * (eta * eta)[..., None], dim=-1)
+        rr_prob = torch.where(depth + 1 > tech.min_depth,
+                              torch.clamp(rr_base, 0.05, 0.95),
+                              torch.ones_like(rr_base)).detach()
+        u_rr, counter_rr = rng.next_f32(seed, counter)
+        rr_draw = can_bounce & b_valid
+        counter = torch.where(rr_draw, counter_rr, counter)
+        survive = u_rr < rr_prob
+        alive_next = rr_draw & survive
+        bounce = dict(
+            org=surf["point"], dir=in_dir,
+            tmin=torch.full_like(t, OFFSET),
+            contrib=new_contrib * safe_div(1.0, rr_prob)[..., None],
+            inv_pdf=torch.where(specular, torch.zeros_like(b_pdf),
+                                safe_div(1.0, b_pdf)),
+            depth=depth + 1, eta=eta * b_eta)
 
     # ---- trace shadow rays & splat
     if do_nee:
@@ -471,19 +527,149 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
     an = alive_next
     anc = alive_next[..., None]
     st_next = dict(
-        org=torch.where(anc, org_next, org),
-        dir=torch.where(anc, dir_next, d),
-        tmin=torch.where(an, torch.full_like(t, OFFSET), st["tmin"]),
+        org=torch.where(anc, bounce["org"], org),
+        dir=torch.where(anc, bounce["dir"], d),
+        tmin=torch.where(an, bounce["tmin"], st["tmin"]),
         tmax=torch.where(an, torch.full_like(t, FLT_MAX), st["tmax"]),
         alive=alive_next,
         seed=seed,
         counter=counter,
-        inv_pdf=torch.where(an, inv_pdf_next, inv_pdf),
-        contrib=torch.where(anc, contrib_next, contrib),
-        depth=torch.where(an, depth_next, depth),
-        eta=torch.where(an, eta_next, eta),
+        inv_pdf=torch.where(an, bounce["inv_pdf"], inv_pdf),
+        contrib=torch.where(anc, bounce["contrib"], contrib),
+        depth=torch.where(an, bounce["depth"], depth),
+        eta=torch.where(an, bounce["eta"], eta),
     )
+    if is_vol:
+        st_next["medium"] = torch.where(an, bounce["medium"], st["medium"])
+        st_next["voldepth"] = torch.where(an, bounce["voldepth"],
+                                          st["voldepth"])
+        st_next["nullfl"] = bounce["nullfl"] & an
+    else:
+        # a path lane never enters a medium: the keys pass through
+        for k in _VOL_KEYS:
+            if k in st:
+                st_next[k] = st[k]
     return splat, st_next, quants
+
+
+def _absorb_only_mask(scene, med):
+    """Lanes in a homogeneous medium that only absorbs (no sigma_s, no
+    expressions): their transmittance is taken in closed form (`hitvol`)
+    instead of sampling absorption events: the same in expectation, and
+    pathwise differentiable w.r.t. sigma_a."""
+    absorb_only = tuple(
+        m["type"] in ("homogeneous", "constant")
+        and not m.get("sigma_s_expr") and not m.get("sigma_a_expr")
+        and float(np.asarray(scene.tables["medium_data"][mi, 3:6]).max())
+        == 0.0
+        for mi, m in enumerate(scene.media))
+    if not any(absorb_only):
+        return torch.zeros(med.shape, dtype=torch.bool, device=med.device)
+    table = device_const(absorb_only, torch.bool, med.device)
+    return table[torch.clamp_min(med, 0).long()] & (med >= 0)
+
+
+def _volpath_bounce(scene, tables, st, surf, mat_type, specular, can_bounce,
+                    counter, m_sa, m_ss, m_g, hitvol):
+    """The volpath technique's on_bounce: a distance sample in the lane's
+    medium, then an absorption (emission splat), scatter (phase sample and
+    russian roulette) or null event (continue forward, reweighted), else the
+    surface's BSDF sample, crossing into the entity's inner or outer medium
+    on transmission.  Returns the next payload of the lanes that go on, the
+    splat and the counter."""
+    tech = scene.technique
+    seed, contrib, depth, eta = st["seed"], st["contrib"], st["depth"], st["eta"]
+    org, d = st["org"], st["dir"]
+    med, voldepth = st["medium"], st["voldepth"]
+    dev = d.device
+    zero, one = device_scalar(0.0, dev), device_scalar(1.0, dev)
+    out_dir = -d
+    max_scat = max([m.get("max_scattering", 8) for m in scene.media] + [8])
+    allow_medium = ((voldepth + 1 <= max_scat)
+                    & ~_absorb_only_mask(scene, med))
+    ms, counter = medium_sample(scene, tables, med, m_sa, m_ss, seed,
+                                counter, org, surf["point"],
+                                can_bounce & allow_medium)
+    medium_event = ms["valid"]
+
+    ev, counter = medium_events(ms, seed, counter)
+    absorb, scatter, null_ev = ev["absorb"], ev["scatter"], ev["null"]
+    p_a, p_s, p_f = ev["p_a"], ev["p_s"], ev["p_f"]
+
+    def inv(p):
+        # where-substitute: 1 / max(p, eps) has a slope that overflows and
+        # reaches masked lanes' zero cotangents as NaN
+        ok = p > 1e-6
+        return torch.where(ok, 1.0 / torch.where(ok, p, one), zero)
+
+    # absorption event: the medium's emission
+    em_c = (contrib * ms["color"] * ms["sigma_a"] * ms["emission"]
+            * inv(p_a)[..., None])
+    splat = torch.where(absorb[..., None], _handle_color(em_c, tech.clamp),
+                        zero)
+
+    # scatter event: phase sample and russian roulette
+    ph_dir, _ph_pdf, ph_w, counter = phase_sample(m_g, seed, counter,
+                                                  out_dir, scatter)
+    contrib_m = contrib * (ms["color"] * ms["sigma_s"] * inv(p_s)[..., None]
+                           * ph_w[..., None])
+    rr_m = torch.clamp(torch.amax(contrib_m * (eta * eta)[..., None],
+                                  dim=-1), 0.05, 0.95).detach()
+    u_rr_m, c_rr_m = rng.next_f32(seed, counter)
+    counter = torch.where(scatter, c_rr_m, counter)
+    scatter_alive = scatter & (u_rr_m < rr_m)
+
+    # surface event: attenuated by the closed-form transmittance where the
+    # medium was not sampled
+    surf_branch = can_bounce & ~medium_event
+    in_dir, b_pdf, b_weight, b_eta, b_valid, counter = bsdf_sample(
+        scene, tables, mat_type, surf, seed, counter, out_dir,
+        active=surf_branch)
+    vol_trans = torch.where(allow_medium[..., None], one, hitvol)
+    contrib_s = contrib * vol_trans * b_weight
+    rr_s = torch.where(specular, one, torch.clamp(
+        torch.amax(contrib_s * (eta * eta)[..., None], dim=-1), 0.05,
+        0.95)).detach()
+    u_rr_s, c_rr_s = rng.next_f32(seed, counter)
+    counter = torch.where(surf_branch & b_valid, c_rr_s, counter)
+    surf_alive = surf_branch & b_valid & (u_rr_s < rr_s)
+    # the medium interface: a transmitted ray enters the entity's inner
+    # medium, or leaves into its outer one
+    is_transmission = torch.signbit(dot(surf["n"], in_dir))
+    inner = gather_rows(tables["ent_inner_medium"], surf["ent"])
+    outer = gather_rows(tables["ent_outer_medium"], surf["ent"])
+    picked = torch.where(surf["is_entering"], inner, outer)
+    med_s = torch.where(is_transmission, picked, med)
+    depth_s = torch.where(is_transmission, depth, depth + 1)
+    voldepth_s = torch.where(is_transmission, torch.zeros_like(voldepth),
+                             voldepth)
+
+    # null event: continue forward from the fictional collision
+    null_contrib = contrib * ms["color"] * ms["sigma_n"] * inv(p_f)[..., None]
+
+    alive = scatter_alive | surf_alive | null_ev
+    sc_c = scatter_alive[..., None]
+    nl_c = null_ev[..., None]
+    med_ev = scatter_alive | null_ev
+    contrib_next = torch.where(
+        sc_c, contrib_m * safe_div(1.0, rr_m)[..., None],
+        torch.where(nl_c, null_contrib,
+                    contrib_s * safe_div(1.0, rr_s)[..., None]))
+    inv_pdf_s = torch.where(specular, torch.zeros_like(b_pdf),
+                            safe_div(1.0, b_pdf))
+    return dict(
+        counter=counter, splat=splat, alive=alive,
+        org=torch.where(med_ev[..., None], ms["pos"], surf["point"]),
+        dir=torch.where(sc_c, ph_dir, torch.where(nl_c, d, in_dir)),
+        tmin=torch.where(med_ev, zero, device_scalar(OFFSET, dev)),
+        contrib=contrib_next,
+        inv_pdf=torch.where(med_ev, device_scalar(-1.0, dev), inv_pdf_s),
+        depth=torch.where(med_ev, depth, depth_s),
+        eta=torch.where(med_ev, eta, eta * b_eta),
+        medium=torch.where(med_ev, med, med_s),
+        voldepth=torch.where(scatter_alive, voldepth + 1,
+                             torch.where(null_ev, voldepth, voldepth_s)),
+        nullfl=null_ev)
 
 
 def _emit_camera(scene, x, y, sample, iteration, frame, user_seed,
@@ -531,13 +717,17 @@ def _fresh_state(n, dev, **over):
         contrib=torch.ones((n, 3), **f32),
         depth=torch.ones(n, dtype=torch.int32, device=dev),
         eta=torch.ones(n, **f32),
+        medium=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        voldepth=torch.zeros(n, dtype=torch.int32, device=dev),
+        nullfl=torch.zeros(n, dtype=torch.bool, device=dev),
     )
     st.update(over)
     return st
 
 
+_VOL_KEYS = ("medium", "voldepth", "nullfl")
 _LANE_KEYS = ("org", "dir", "tmin", "tmax", "alive", "seed", "counter",
-              "inv_pdf", "contrib", "depth", "eta")
+              "inv_pdf", "contrib", "depth", "eta") + _VOL_KEYS
 
 
 def _compact(state, tail_cap, extra=()):
@@ -653,6 +843,7 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
     c = int(capacity)
     dev = tables["tri_v0"].device
     f32 = dict(dtype=torch.float32, device=dev)
+    is_vol = scene.technique.type == "volpath"
 
     trivial = _flags_trivial(scene)
     # mixed camera/bounce lanes per wave: exact per-ray visibility needs
@@ -707,6 +898,12 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
         st["depth"] = torch.where(take, torch.ones_like(st["depth"]),
                                   st["depth"])
         st["eta"] = torch.where(take, torch.ones_like(st["eta"]), st["eta"])
+        if is_vol:
+            st["medium"] = torch.where(take, torch.full_like(st["medium"], -1),
+                                       st["medium"])
+            st["voldepth"] = torch.where(
+                take, torch.zeros_like(st["voldepth"]), st["voldepth"])
+            st["nullfl"] = st["nullfl"] & ~take
         st["pixel"] = torch.where(take, wid_c, st["pixel"])
         st["alive"] = st["alive"] | take
         n_take = _count(take)

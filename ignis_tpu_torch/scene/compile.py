@@ -7,9 +7,8 @@ entities keeps one local copy plus transform records, `CompiledScene.instanced`)
 analytic sphere records (`sph_rows`), array-of-struct material/light parameter
 tables, and a static `CompiledScene` the integrator specialises on.
 
-Branches whose helpers are not ported yet (measured BSDFs, heterogeneous
-media, the halton sampler) raise `NotImplementedError` when a
-scene reaches them; `check_slice` rejects what compiles but the integrator
+Branches whose helpers are not ported yet (the halton sampler) raise
+`NotImplementedError` when a scene reaches them; `check_slice` rejects what compiles but the integrator
 does not cover yet.  Nothing is silently skipped or approximated.
 """
 
@@ -658,12 +657,10 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
             mat_colors_b[i, 0] = np.float32([1, 0, 1])
         if bsdf_types[i] == BSDF_DJMEASURED:
             obj = flat_leaves_a[i]
-            raise NotImplementedError(
-                "measured BSDF 'djmeasured' is not ported to ignis_tpu_torch yet")
+            from ignis_tpu_torch.measured.djmeasured import load_brdf
             try:
-                tbl, info = cached_pickle(
-                    scene.resolve_path(obj["filename"]), "djbrdf",
-                    lambda p: load_brdf(p, f"dj{i}"), extra=f"dj{i}")
+                tbl, info = load_brdf(scene.resolve_path(obj["filename"]),
+                                      f"dj{i}")
             except Exception as e:
                 import warnings
                 warnings.warn(f"Failed to load djmeasured "
@@ -676,14 +673,11 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
             continue
         if bsdf_types[i] == BSDF_TENSORTREE:
             obj = flat_leaves_a[i]
-            raise NotImplementedError(
-                "measured BSDF 'tensortree' is not ported to ignis_tpu_torch yet")
+            from ignis_tpu_torch.measured.tensortree import (
+                load_tensortree_xml, tensortree_tables)
             try:
-                tbl, info = cached_pickle(
-                    scene.resolve_path(obj["filename"]), "ttbsdf",
-                    lambda p: tensortree_tables(load_tensortree_xml(p),
-                                                f"tt{i}"),
-                    extra=f"tt{i}")
+                tbl, info = tensortree_tables(load_tensortree_xml(
+                    scene.resolve_path(obj["filename"])), f"tt{i}")
             except Exception as e:
                 import warnings
                 warnings.warn(f"Failed to load tensortree "
@@ -699,13 +693,10 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
         if bsdf_types[i] != BSDF_KLEMS:
             continue
         obj = flat_leaves_a[i]
-        raise NotImplementedError(
-            "measured BSDF 'klems' is not ported to ignis_tpu_torch yet")
+        from ignis_tpu_torch.measured.klems import klems_tables, load_klems_xml
         try:
-            tbl, info = cached_pickle(
-                scene.resolve_path(obj["filename"]), "klems",
-                lambda p: klems_tables(load_klems_xml(p), f"klems{i}"),
-                extra=f"klems{i}")
+            tbl, info = klems_tables(load_klems_xml(
+                scene.resolve_path(obj["filename"])), f"klems{i}")
         except Exception as e:
             import warnings
             warnings.warn(f"Failed to load klems '{obj.get('filename')}': {e};"
@@ -974,9 +965,7 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
             rec["reference"] = mobj.get("reference")  # entity name or None
             ext = str(path).rsplit(".", 1)[-1].lower()
             if ext == "bin":
-                raise NotImplementedError(
-                    "heterogeneous voxel-grid media are not ported to "
-                    "ignis_tpu_torch yet")
+                from ignis_tpu_torch.medium.volume import load_voxel_grid_bin
                 grid = load_voxel_grid_bin(path)
                 rec["type"] = "hetero_voxel"
                 # .bin grids default scalar_emission to 1 instead of 0
@@ -996,8 +985,7 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
                 medium_majorant[mi] = (ext_max.max(axis=0)
                                        if ext_max.size else 0.0)
             elif ext == "nvdb":
-                raise NotImplementedError(
-                    "NanoVDB media are not ported to ignis_tpu_torch yet")
+                from ignis_tpu_torch.medium.nanovdb import load_nvdb_grid
                 gname = mobj.get("grid_density", "density")
                 tname = mobj.get("grid_temperature", "none")
                 dens = load_nvdb_grid(path, gname)
@@ -1015,6 +1003,7 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
                 if tname != "none":
                     t_ = medium_tables[f"vol{mi}_temperature"]
                     tmax = np.asarray([float(t_.max())], np.float32)
+                from ignis_tpu_torch.medium.volume import apply_density_shader
                 mss, msa, _ = apply_density_shader(rec["shader"], row,
                                                    dmax, tmax)
                 medium_majorant[mi] = np.asarray(mss + msa)[0]
@@ -1500,7 +1489,8 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
 _SLICE_BSDFS = (BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PHONG,
                 BSDF_PLASTIC, BSDF_PRINCIPLED, BSDF_PASSTHROUGH,
                 BSDF_ROUGH_CONDUCTOR, BSDF_ROUGH_DIELECTRIC,
-                BSDF_ROUGH_PLASTIC)
+                BSDF_ROUGH_PLASTIC, BSDF_KLEMS, BSDF_TENSORTREE,
+                BSDF_DJMEASURED)
 # normal modifier kinds: 0 none, 1 normal map, 2 bump map, 3 the constant
 # normal (and tangent) set, 4 a PExpr normal
 _SLICE_NMODS = (0, 1, 2, 3, 4)
@@ -1514,7 +1504,7 @@ def check_slice(cs: CompiledScene) -> None:
         raise NotImplementedError(
             f"{what} is not ported to ignis_tpu_torch yet")
 
-    if cs.technique.type != "path":
+    if cs.technique.type not in ("path", "volpath"):
         no(f"technique '{cs.technique.type}'")
     if cs.technique.light_selector not in _SLICE_SELECTORS:
         no(f"light selector '{cs.technique.light_selector}'")
@@ -1529,8 +1519,6 @@ def check_slice(cs: CompiledScene) -> None:
                f"(material '{name}')")
     if any(k not in _SLICE_NMODS for k in cs.nmod_kinds):
         no(f"normal modifier kinds {sorted(set(cs.nmod_kinds))}")
-    if cs.media:
-        no("participating media")
     fl = np.asarray(cs.tables["ent_flags"])
     if (((fl & 0x1) != 0) != ((fl & 0x4) != 0)).any():
         no("camera_visible != bounce_visible entity flags")

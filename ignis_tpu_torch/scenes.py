@@ -512,3 +512,293 @@ def env_scene(dirpath, seed=7):
                                      rng.uniform(0.01, 0.08, 3)]})
     scene["lights"] = lights
     return scene
+
+
+def _smooth_noise(rng, shape, passes):
+    """Uniform noise box-blurred `passes` times along each axis, rescaled to
+    [0, 1]: a smooth random field."""
+    a = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    for _ in range(passes):
+        for ax in range(len(shape)):
+            a = (a + np.roll(a, 1, ax) + np.roll(a, -1, ax)) / 3.0
+    a -= a.min()
+    return (a / max(float(a.max()), 1e-12)).astype(np.float32)
+
+
+def _media_grids(dirpath, seed, cloud_res=128, glow_res=64):
+    """The two heterogeneous media of `media_scene`, made from a numpy seed
+    and written into `dirpath`: a cloud_res^3 NanoVDB density cloud (a
+    smooth noise field under a spherical falloff, zero outside it) and a
+    glow_res^3 `.bin` voxel grid of absorption, scattering and emission.
+    Returns the two paths."""
+    import os
+    from ignis_tpu_torch.medium.nanovdb import write_nvdb_grid
+    from ignis_tpu_torch.medium.volume import write_voxel_grid_bin
+    rng = np.random.default_rng(seed)
+    c = (np.arange(cloud_res, dtype=np.float32) + 0.5) / cloud_res - 0.5
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    r = np.sqrt(x * x + y * y + z * z) / 0.5
+    falloff = np.clip(1.0 - r, 0.0, 1.0) ** 0.5
+    noise = _smooth_noise(rng, (cloud_res,) * 3, 4)
+    cloud = np.clip(1.6 * noise * falloff - 0.25, 0.0, None).astype(np.float32)
+    cloud_path = os.path.join(str(dirpath), "cloud.nvdb")
+    write_nvdb_grid(cloud_path, cloud, "density")
+
+    g = (np.arange(glow_res, dtype=np.float32) + 0.5) / glow_res - 0.5
+    z, y, x = np.meshgrid(g, g, g, indexing="ij")
+    core = np.exp(-(x * x + y * y + z * z) / 0.04)
+    field = _smooth_noise(rng, (glow_res,) * 3, 3)
+    sigma_a = (0.5 + 4.0 * field * core)[..., None] * np.float32(
+        [1.0, 1.0, 1.0])
+    sigma_s = (0.3 * field)[..., None] * np.float32([1.0, 0.9, 0.8])
+    emission = (core * (0.5 + field))[..., None] * np.float32([4.0, 1.6, 0.4])
+    glow_path = os.path.join(str(dirpath), "glow.bin")
+    write_voxel_grid_bin(glow_path, sigma_a, sigma_s, emission)
+    return cloud_path, glow_path
+
+
+def media_scene(dirpath, seed=11, cloud_res=128, glow_res=64):
+    """The demo box (Baldwin-Weber tables: 670 triangles) filled with
+    participating media, under the `volpath` technique: a dielectric sphere
+    holding a homogeneous scattering medium (sigma_a 0.05, sigma_s 0.8,
+    g 0.3); a tinted glass sphere holding an absorb-only medium (the glTF
+    attenuation case); a passthrough cube holding a cloud_res^3 NanoVDB
+    density cloud (`pbrt_volume` shader, trilinear, delta tracking with ratio
+    tracking for its transmittance); and a passthrough cube holding an
+    emissive glow_res^3 voxel grid (`method: regular`).  The grids are
+    written into `dirpath` from the numpy `seed`.  The demo's plane light
+    and constant environment, seen from the box's open side; depth 8,
+    512x512 film."""
+    cloud_path, glow_path = _media_grids(dirpath, seed, cloud_res, glow_res)
+    scene = demo_scene()
+    scene["technique"] = {"type": "volpath", "max_depth": 8}
+    # from the open side of the box, as `env_scene` looks in, closer
+    scene["camera"] = dict(scene["camera"], fov=38, transform=[
+        1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -3.85, 0, 0, 0, 1])
+    scene["film"] = {"size": [512, 512]}
+    scene["bsdfs"] = scene["bsdfs"][:2] + [
+        {"type": "dielectric", "name": "glass", "int_ior": 1.5},
+        {"type": "dielectric", "name": "tinted", "int_ior": 1.45},
+        {"type": "passthrough", "name": "null"},
+    ]
+    keep = ("light", "floor", "back")
+    scene["shapes"] = [s for s in scene["shapes"] if s["name"] in keep] + [
+        {"type": "icosphere", "name": "fog_ball", "center": [-0.5, -0.6, 0.1],
+         "radius": 0.4, "subdivisions": 2},
+        {"type": "icosphere", "name": "tint_ball",
+         "center": [0.55, -0.72, -0.25], "radius": 0.28, "subdivisions": 2},
+        {"type": "cube", "name": "cloud_box", "width": 0.8, "height": 0.8,
+         "depth": 0.8, "transform": [{"translate": [-0.15, 0.35, 0.35]}]},
+        {"type": "cube", "name": "glow_box", "width": 0.45, "height": 0.45,
+         "depth": 0.45, "transform": [{"translate": [0.6, -0.05, -0.3]}]},
+    ]
+    scene["entities"] = [e for e in scene["entities"] if e["name"] in keep] + [
+        {"name": "fog_ball", "shape": "fog_ball", "bsdf": "glass",
+         "inner_medium": "fog"},
+        {"name": "tint_ball", "shape": "tint_ball", "bsdf": "tinted",
+         "inner_medium": "tint"},
+        {"name": "cloud_box", "shape": "cloud_box", "bsdf": "null",
+         "inner_medium": "cloud"},
+        {"name": "glow_box", "shape": "glow_box", "bsdf": "null",
+         "inner_medium": "glow"},
+    ]
+    scene["media"] = [
+        {"type": "homogeneous", "name": "fog", "sigma_a": [0.05, 0.05, 0.05],
+         "sigma_s": [0.8, 0.8, 0.8], "g": 0.3},
+        {"type": "homogeneous", "name": "tint", "sigma_a": [0.2, 0.9, 1.6],
+         "sigma_s": [0.0, 0.0, 0.0]},
+        {"type": "heterogeneous", "name": "cloud", "filename": cloud_path,
+         "shader": "pbrt_volume", "scalar_density": 6.0,
+         "color_scattering": [0.9, 0.9, 0.9],
+         "color_absorption": [0.1, 0.1, 0.1], "interpolate": True,
+         "method": "delta_tracking", "g": 0.2},
+        {"type": "heterogeneous", "name": "glow", "filename": glow_path,
+         "method": "regular", "g": 0.0},
+    ]
+    return scene
+
+
+# the LBNL "Klems Full" angle basis: (theta center, lower, upper, phi count)
+# of its 9 bands, 145 patches
+KLEMS_FULL = ((0.0, 0.0, 5.0, 1), (10.0, 5.0, 15.0, 8), (20.0, 15.0, 25.0, 16),
+              (30.0, 25.0, 35.0, 20), (40.0, 35.0, 45.0, 24),
+              (50.0, 45.0, 55.0, 24), (60.0, 55.0, 65.0, 24),
+              (70.0, 65.0, 75.0, 16), (82.5, 75.0, 90.0, 12))
+
+
+def write_klems_xml(path, seed, basis=KLEMS_FULL, tau=0.7, rho=0.08):
+    """A glazing's Klems BSDF as a WINDOW / Radiance XML file, made from a
+    numpy `seed`: four components (transmission and reflection, front and
+    back) over one angle `basis` (default "LBNL/Klems Full", 145 patches).
+    Transmission is a direct peak (`tau` of the light through the patch it
+    came from) over a seeded diffuse haze; reflection a small seeded diffuse
+    part (`rho`) with a specular diagonal.  Values are BSDF values (1/sr),
+    the direct terms divided by each patch's projected solid angle."""
+    rng = np.random.default_rng(seed)
+    lo = np.deg2rad([b[1] for b in basis])
+    hi = np.deg2rad([b[2] for b in basis])
+    nphi = np.asarray([b[3] for b in basis])
+    n = int(nphi.sum())
+    lam = np.repeat((np.cos(lo) ** 2 - np.cos(hi) ** 2) * np.pi / nphi, nphi)
+    blocks = "".join(
+        f"<AngleBasisBlock><Theta>{c}</Theta><nPhis>{k}</nPhis>"
+        f"<ThetaBounds><LowerTheta>{a}</LowerTheta>"
+        f"<UpperTheta>{b}</UpperTheta></ThetaBounds></AngleBasisBlock>"
+        for c, a, b, k in basis)
+    comps = []
+    for direction, kind in (("Transmission Front", "t"),
+                            ("Transmission Back", "t"),
+                            ("Reflection Front", "r"),
+                            ("Reflection Back", "r")):
+        haze = rng.uniform(0.5, 1.5, (n, n)) / np.pi
+        if kind == "t":
+            m = 0.04 * haze + np.diag(tau / lam)
+        else:
+            m = rho * haze + np.diag(0.04 / lam)
+        data = " ".join(f"{v:.6g}" for v in m.astype(np.float32).ravel())
+        comps.append(
+            "<WavelengthData><LayerNumber>System</LayerNumber>"
+            "<Wavelength unit=\"Integral\">Visible</Wavelength>"
+            "<WavelengthDataBlock>"
+            f"<WavelengthDataDirection>{direction}</WavelengthDataDirection>"
+            "<ColumnAngleBasis>LBNL/Klems Full</ColumnAngleBasis>"
+            "<RowAngleBasis>LBNL/Klems Full</RowAngleBasis>"
+            f"<ScatteringDataType>BTDF</ScatteringDataType>"
+            f"<ScatteringData>{data}</ScatteringData>"
+            "</WavelengthDataBlock></WavelengthData>")
+    xml = ("<?xml version=\"1.0\"?>"
+           "<WindowElement xmlns=\"http://windows.lbl.gov\"><Optical><Layer>"
+           "<DataDefinition>"
+           "<IncidentDataStructure>Columns</IncidentDataStructure>"
+           "<AngleBasis><AngleBasisName>LBNL/Klems Full</AngleBasisName>"
+           f"{blocks}</AngleBasis></DataDefinition>"
+           + "".join(comps) + "</Layer></Optical></WindowElement>")
+    with open(path, "w") as f:
+        f.write(xml)
+
+
+def write_tensortree_xml(path, seed, depth=4, peak=6.0):
+    """A glazing's isotropic tensor-tree BSDF (TensorTree3) as a Radiance
+    XML file, made from a numpy `seed`: each of the four components is a
+    seeded smooth base over (incident radius, outgoing x, y) plus a peak at
+    the outgoing disk's center, the tree refined down to `depth` levels
+    only where the peak varies (the rest stays single-value leaves)."""
+    rng = np.random.default_rng(seed)
+
+    def write_node(lo, size, level, f, tol):
+        # a leaf of 8 values, one at each half-cell's center (the first
+        # dimension in the highest bit), or 8 children (the first dimension
+        # in the lowest bit)
+        vals = [f(lo + (np.asarray([(k >> 2) & 1, (k >> 1) & 1, k & 1])
+                        + 0.5) * 0.5 * size) for k in range(8)]
+        spread = max(vals + [f(lo + 0.5 * size)]) - min(vals)
+        if level >= depth or spread < tol:
+            if np.ptp(vals) < 1e-3 * tol:
+                return "{ %.6g }" % vals[0]
+            return "{ " + " ".join("%.6g" % v for v in vals) + " }"
+        kids = []
+        for k in range(8):
+            bits = np.asarray([k & 1, (k >> 1) & 1, (k >> 2) & 1])
+            kids.append(write_node(lo + bits * 0.5 * size, 0.5 * size,
+                                   level + 1, f, tol))
+        return "{ " + " ".join(kids) + " }"
+
+    comps = []
+    for direction, scale in (("Transmission Front", 1.0),
+                             ("Transmission Back", 1.0),
+                             ("Reflection Front", 0.1),
+                             ("Reflection Back", 0.1)):
+        a, b, w = rng.uniform(0.05, 0.2), rng.uniform(-0.05, 0.05), \
+            rng.uniform(0.08, 0.15)
+
+        def f(p, a=a, b=b, w=w, scale=scale):
+            r2 = (p[1] - 0.5) ** 2 + (p[2] - 0.5) ** 2
+            return scale * (a + b * p[0] + peak * np.exp(-r2 / (w * w)))
+        tree = write_node(np.zeros(3), 1.0, 1, f, 0.05 * peak * scale)
+        comps.append(
+            "<WavelengthData><LayerNumber>System</LayerNumber>"
+            "<Wavelength unit=\"Integral\">Visible</Wavelength>"
+            "<WavelengthDataBlock>"
+            f"<WavelengthDataDirection>{direction}</WavelengthDataDirection>"
+            "<AngleBasis>LBNL/Shirley-Chiu</AngleBasis>"
+            "<ScatteringDataType>BTDF</ScatteringDataType>"
+            f"<ScatteringData>{{ {tree} }}</ScatteringData>"
+            "</WavelengthDataBlock></WavelengthData>")
+    xml = ("<?xml version=\"1.0\"?>"
+           "<WindowElement xmlns=\"http://windows.lbl.gov\"><Optical><Layer>"
+           "<DataDefinition>"
+           "<IncidentDataStructure>TensorTree3</IncidentDataStructure>"
+           "</DataDefinition>"
+           + "".join(comps) + "</Layer></Optical></WindowElement>")
+    with open(path, "w") as f:
+        f.write(xml)
+
+
+def _smooth_field(rng, shape):
+    """Seeded uniform noise + 0.2, box-blurred once along the last two axes:
+    the Dupuy-Jakob fields' generator of tests/test_djmeasured.py."""
+    a = rng.random(shape).astype(np.float32) + 0.2
+    for ax in (-1, -2):
+        a = (a + np.roll(a, 1, ax) + np.roll(a, -1, ax)) / 3.0
+    return a.astype(np.float32)
+
+
+def write_dj_bsdf(path, seed, nphi=1, ntheta=11, res=64, lres=32):
+    """A synthetic but valid isotropic Dupuy-Jakob `tensor_file` (ndf,
+    sigma, vndf, luminance and rgb fields of smooth seeded noise over
+    `ntheta` incident elevations).  Returns the fields."""
+    from ignis_tpu_torch.measured.djmeasured import write_tensor_file
+    rng = np.random.default_rng(seed)
+    fields = {
+        "theta_i": np.linspace(0.0, 1.5, ntheta).astype(np.float32),
+        "phi_i": np.zeros(nphi, np.float32),
+        "ndf": _smooth_field(rng, (res, res)),
+        "sigma": _smooth_field(rng, (res, res)),
+        "vndf": _smooth_field(rng, (nphi, ntheta, res, res)),
+        "luminance": _smooth_field(rng, (nphi, ntheta, lres, lres)),
+        "rgb": _smooth_field(rng, (nphi, ntheta, 3, lres, lres)),
+        "description": np.frombuffer(b"synthetic", np.uint8),
+        "jacobian": np.zeros(1, np.uint8),
+    }
+    write_tensor_file(path, fields)
+    return fields
+
+
+def measured_scene(dirpath, seed=13):
+    """`daylight_scene()`'s room (20,498 triangles: the packet-BVH tables)
+    with measured materials: the window opening glazed by two panes, one a
+    Klems BSDF over the "LBNL/Klems Full" basis (145 patches, four 145 x 145
+    matrices), one a TensorTree3 BSDF; the 16 icospheres in one
+    Dupuy-Jakob (djmeasured) BRDF of 11 incident elevations, 64 x 64 NDF /
+    VNDF and 32 x 32 luminance / RGB fields.  Every file is written into
+    `dirpath` from the numpy `seed`; the sizes are chosen, not those of a
+    published measurement.  The sun, the sky and the 256 spots under the
+    light hierarchy; depth 6, 512x512 film."""
+    import os
+    d = str(dirpath)
+    klems = os.path.join(d, "glazing_klems.xml")
+    tree = os.path.join(d, "glazing_tt.xml")
+    dj = os.path.join(d, "paint.bsdf")
+    write_klems_xml(klems, seed)
+    write_tensortree_xml(tree, seed + 1)
+    write_dj_bsdf(dj, seed + 2)
+    scene = daylight_scene()
+    scene["bsdfs"] = [b for b in scene["bsdfs"]
+                      if not b["name"].startswith("paint")] + [
+        {"type": "klems", "name": "pane_klems", "filename": klems,
+         "up": [0, 1, 0]},
+        {"type": "tensortree", "name": "pane_tt", "filename": tree,
+         "up": [0, 1, 0]},
+        {"type": "djmeasured", "name": "measured_paint", "filename": dj},
+    ]
+    for e in scene["entities"]:
+        if e["bsdf"].startswith("paint"):
+            e["bsdf"] = "measured_paint"
+    # two 1 x 1.5 m panes in the 2 x 1.5 m window at z = +4, sill 0.9 m
+    for name, x in (("pane_klems", -0.5), ("pane_tt", 0.5)):
+        scene["shapes"].append({
+            "type": "rectangle", "name": name, "width": 1.0, "height": 1.5,
+            "transform": [{"translate": [x, 1.65, 4.0]},
+                          {"rotate": [0, 180, 0]}]})
+        scene["entities"].append({"name": name, "shape": name, "bsdf": name})
+    return scene

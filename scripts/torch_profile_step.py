@@ -2,7 +2,8 @@
 """Where a `Runtime.step` of the PyTorch/CUDA port spends its time.
 
     python3 scripts/torch_profile_step.py \
-        [demo|big|both|instanced|sweep|materials|textured|daylight|env|all]
+        [demo|big|both|instanced|sweep|materials|textured|daylight|env|
+         media|measured|all]
 
 `both` is demo and big; `instanced` is the 1024-instance scene, `sweep` the
 32,002-triangle scene with un-accelerated tables, `materials` the demo box
@@ -11,7 +12,11 @@ same box with image, checkerboard, brick, noise and PExpr textures (its
 images written under `build/textured_scene/`), `daylight` the furnished room
 under a sun, a Hosek sky and 256 spots (light hierarchy), `env` the demo box
 under an SAT-sampled HDR environment and 64 points (its image written under
-`build/env_scene/`); `all` is the eight.  Every
+`build/env_scene/`), `media` the demo box with homogeneous, NanoVDB and
+voxel-grid media under `volpath` (its grids written under
+`build/media_scene/`), `measured` the room with a Klems and a TensorTree pane
+and Dupuy-Jakob spheres (its files written under `build/measured_scene/`);
+`all` is the ten.  Every
 scene renders at 512x512.  Runs one warm-up step and then profiles one step
 of the scene(s) with `torch.profiler` (CPU + CUDA activities) and prints, per
 scene, one JSON line: the step's wall time (host clock closed by a
@@ -95,10 +100,11 @@ def main():
     from ignis_tpu_torch.api import Runtime
     from ignis_tpu_torch.scenes import (
         big_scene, daylight_scene, demo_scene, env_scene, instanced_scene,
-        materials_scene, textured_scene,
+        materials_scene, measured_scene, media_scene, textured_scene,
     )
     if which not in ("demo", "big", "both", "instanced", "sweep",
-                     "materials", "textured", "daylight", "env", "all"):
+                     "materials", "textured", "daylight", "env", "media",
+                     "measured", "all"):
         print(f"unknown scene '{which}'", file=sys.stderr)
         return 2
     if which in ("demo", "both", "all"):
@@ -130,6 +136,12 @@ def main():
             os.path.abspath(__file__))), "build", "env_scene")
         os.makedirs(env_dir, exist_ok=True)
         profile_step("env", Runtime(env_scene(env_dir)), 1)
+    for name, make in (("media", media_scene), ("measured", measured_scene)):
+        if which in (name, "all"):
+            d = os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "build", f"{name}_scene")
+            os.makedirs(d, exist_ok=True)
+            profile_step(name, Runtime(make(d)), 1)
     return 0
 
 

@@ -22,7 +22,8 @@ from ignis_tpu_torch.convert import (
 from ignis_tpu_torch.scene.compile import check_slice
 from ignis_tpu_torch.scene.compile import load_and_compile as t_compile
 from ignis_tpu_torch.scenes import (
-    big_scene, daylight_scene, demo_scene, env_scene, textured_scene,
+    big_scene, daylight_scene, demo_scene, env_scene, measured_scene,
+    media_scene, textured_scene,
 )
 
 
@@ -144,9 +145,54 @@ TEXTURED = {"textured": textured_scene, "parameters": param_scene,
             "env": env_scene}
 
 
+def _media_test(kind):
+    """tests/test_media.py's scenes: a constant voxel grid (scattering,
+    emissive), ratio tracking, a NanoVDB cloud, the homogeneous twin."""
+    def make(d):
+        import test_media as tm
+        from ignis_tpu_torch.medium.nanovdb import write_nvdb_grid
+        if kind == "emissive":
+            s = tm._hetero_scene(d, [3.0, 3.0, 3.0], [0, 0, 0],
+                                 emission=(5.0, 5.0, 5.0))
+            s["lights"] = []
+            return s
+        s = tm._hetero_scene(d, [0.4, 0.9, 1.4], [0.3, 0.2, 0.1], g=0.4)
+        if kind == "ratio":
+            s["media"][0]["method"] = "delta_tracking"
+        elif kind == "homogeneous":
+            s["media"] = [{"type": "homogeneous", "name": "Med",
+                           "sigma_a": [0.4, 0.9, 1.4],
+                           "sigma_s": [0.3, 0.2, 0.1], "g": 0.4}]
+        elif kind == "nvdb":
+            dense = np.random.default_rng(2).uniform(
+                0, 1, (8, 6, 10)).astype(np.float32)
+            write_nvdb_grid(str(d / "c.nvdb"), dense, "density")
+            s["media"] = [{"type": "heterogeneous", "name": "Med",
+                           "filename": str(d / "c.nvdb"),
+                           "shader": "principled_volume",
+                           "scalar_density": 2.0, "interpolate": True,
+                           "method": "delta_tracking"}]
+        return s
+    return make
+
+
+# scenes with participating media, written into a directory first: the
+# reference's media tests and the port's `media_scene()` (its 128^3 cloud
+# and 64^3 voxel grid)
+MEDIA = {"media scene": media_scene,
+         **{f"media {k}": _media_test(k) for k in (
+             "grid", "emissive", "ratio", "homogeneous", "nvdb")}}
+# measured materials, their files written into a directory first
+MEASURED = {"measured scene": measured_scene}
+
+
 def _scene(name, tmp_path):
     if name in TEXTURED:
         return TEXTURED[name](tmp_path)
+    if name in MEDIA:
+        return MEDIA[name](tmp_path)
+    if name in MEASURED:
+        return MEASURED[name](tmp_path)
     return SCENES[name]()
 
 
@@ -166,7 +212,18 @@ def test_scene_copies_equal_the_originals():
     assert big_scene(2, 3) == _big_bench.make_scene(2, 3)
 
 
-@pytest.mark.parametrize("name", sorted(SCENES) + sorted(TEXTURED))
+def _same_info(a, b):
+    """Static per-material info dicts (lists, numpy arrays, numbers)."""
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].keys() == b[k].keys(), k
+        for f in a[k]:
+            np.testing.assert_array_equal(np.asarray(a[k][f]),
+                                          np.asarray(b[k][f]), err_msg=f)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES) + sorted(TEXTURED)
+                         + sorted(MEDIA) + sorted(MEASURED))
 def test_compiled_tables_equal(name, tmp_path):
     a = j_compile(_scene(name, tmp_path), 32, 32)
     b = t_compile(_scene(name, tmp_path), 32, 32)
@@ -194,6 +251,11 @@ def test_compiled_tables_equal(name, tmp_path):
     assert a.lh_depth == b.lh_depth
     assert [getattr(l, "sky", None) for l in a.lights] == \
            [getattr(l, "sky", None) for l in b.lights]
+    # the media records: type, method, shader, interpolation, reference
+    # entity
+    assert a.media == b.media
+    for key in ("klems_info", "tensortree_info", "djmeasured_info"):
+        _same_info(getattr(a, key), getattr(b, key))
 
 
 def test_type_constants_keep_their_values():
@@ -205,7 +267,7 @@ def test_type_constants_keep_their_values():
 
 
 @pytest.mark.parametrize("name", ["demo", "flat", "ico"] + sorted(TEXTURED)
-                         + sorted(LIGHTS))
+                         + sorted(LIGHTS) + ["media scene", "measured scene"])
 def test_runtime_tables_equal(name, tmp_path):
     """bw_tables / build_bvh / build_packet_bvh / pack_tri_shade as the two
     Runtimes build them; for the textured scenes also the image tables
@@ -241,6 +303,15 @@ def test_runtime_tables_equal(name, tmp_path):
     if "lh_codes" in tt:
         assert tt["lh_codes"].dtype == np.int64
         np.testing.assert_array_equal(tt["lh_codes"], jt["lh_codes"])
+    if name in MEDIA:
+        assert {"medium_data", "medium_shader", "medium_majorant",
+                "ent_inner_medium", "ent_outer_medium", "vol2_density",
+                "vol3_sigma_a"} <= set(tt)
+        return
+    if name in MEASURED:
+        assert {"klems4_front_transmission_mat", "tt5_back_reflection_nodes",
+                "dj6_vndf_cond"} <= set(tt)
+        return
     if name in LIGHTS or name in ("light env cdf", "env"):
         assert trt.scene.lh_depth == jrt.scene.lh_depth
         assert ("lh_child" in tt) == (name == "selector hierarchy")
@@ -293,6 +364,17 @@ def test_scene_from_metadata_copies_what_the_integrator_reads():
     assert vars(b.technique) == vars(a.technique)
 
 
+def test_scene_from_metadata_carries_the_measured_info(tmp_path):
+    """The measured materials' static info travels with the metadata, as a
+    copy (the port adds derived facts to it)."""
+    a = j_compile(measured_scene(tmp_path), 16, 16)
+    b = scene_from_metadata(a)
+    check_slice(b)
+    for key in ("klems_info", "tensortree_info", "djmeasured_info"):
+        _same_info(getattr(a, key), getattr(b, key))
+        assert getattr(b, key) and getattr(b, key) is not getattr(a, key)
+
+
 def test_scene_from_metadata_carries_the_light_state():
     """`lh_depth` (set on the compiled scene after construction) and each
     sky's parameters travel with the metadata: a hierarchy compiled by the
@@ -334,15 +416,12 @@ def _flat_bsdf(bsdf):
 
 OUT_OF_SLICE = {
     "technique ao": lambda: _flat_with(technique={"type": "ao"}),
-    "technique volpath": lambda: _flat_with(technique={"type": "volpath"}),
     "sampler halton": lambda: _flat_with(
         film={"size": [8, 8], "sampler": "halton"}),
     "sampler mjitt": lambda: _flat_with(
         film={"size": [8, 8], "sampler": "mjitt"}),
     "camera orthogonal": lambda: _flat_with(
         camera=dict(create_flat_scene()["camera"], type="orthogonal")),
-    "media": lambda: _flat_with(media=[
-        {"type": "homogeneous", "name": "fog", "sigma_s": [1, 1, 1]}]),
     "camera != bounce visibility": lambda: _flat_entity(camera_visible=False),
 }
 
@@ -365,6 +444,18 @@ def _with_checker(s):
 # (Runtime, index of the "ground" material) says what the compiled scene
 # must hold.
 MOVED_INTO_SLICE = {
+    # participating media and the volpath technique: the flat scene's
+    # entity holds a medium (the ground material stays diffuse)
+    "technique volpath": (lambda: _flat_with(technique={"type": "volpath"}),
+                          lambda rt, g: rt.scene.technique.type == "volpath"),
+    "media": (lambda: _flat_with(
+        technique={"type": "volpath"},
+        entities=[dict(create_flat_scene()["entities"][0],
+                       inner_medium="fog")],
+        media=[{"type": "homogeneous", "name": "fog",
+                "sigma_s": [1, 1, 1]}]),
+        lambda rt, g: rt.scene.media[0]["type"] == "homogeneous"
+        and int(rt.tables["ent_inner_medium"][0]) == 0),
     "analytic sphere": (lambda: dict(
         _flat_with(), shapes=[{"type": "sphere", "name": "Bottom"}]),
         lambda rt, g: "sph_rows" in rt.tables),
