@@ -48,7 +48,14 @@ functions CPU vs card; the gradient with respect to the media's rows and
 shader rows.  Last measured materials (`measured`): the daylight room with a
 Klems and a TensorTree pane in its window and Dupuy-Jakob spheres, through
 `Runtime.step` on the packet-BVH kernels, held to its plain traversal, and
-its gradient with respect to the material colors.  Every phase prints one
+its gradient with respect to the material colors.  Last the techniques
+(`techniques`): the demo box under `ao`, `infobuffer`, `wireframe` and three
+debug modes, under the mjitt and Halton samplers, an orthogonal camera and an
+entity hidden from the camera (the per-sample driver), each held to its plain
+traversal; the samplers' draws and the cameras' rays CPU vs card; the
+daylight room under a fishlens camera on the packet-BVH kernels, with
+`tonemap`, `imageinfo` and `evaluateGlare` on its frame (the DGP held to the
+CPU's); the denoiser; a checkpoint's bitwise resume.  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -98,6 +105,16 @@ POS_ABS = 1e-5            # CPU vs card: medium samples' positions and
 # scripts/torch_fireflies.py, tests/test_torch_materials_fireflies.py) rule
 # a squared-error loss and its gradient
 TRAIN_CLAMP = 10.0
+RAY_ABS = 1e-6            # CPU vs card: orthogonal and fishlens camera rays
+# card vs CPU: the DGP of one frame.  A pixel's solid angle is the float32
+# spherical excess, four angles near pi less 2 pi, as the reference takes
+# it: it keeps 2 pi's rounding, some 1 % of a 512x512 pixel's solid angle,
+# so the last bit of `arccos`, which differs between the card and the CPU,
+# moves the DGP (1.5e-5 on the fishlens daylight frame, H100)
+DGP_REL = 1e-4
+# 512x512 Halton: stride 2^9 * 3^6 = 373,248; index * stride passes 2^32
+# after 11,507 samples
+HALTON_PAST_WRAP = 11508
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 # float32 operations per test, counted from the kernels' sources
@@ -765,6 +782,21 @@ PATH_KERNELS = {
     "env": ("bw_closest", "bw_any"),
     "media": ("bw_closest", "bw_any"),
     "measured": ("packet_bvh_closest", "packet_bvh_any"),
+    # the techniques phase: single-intersection techniques and the
+    # per-sample driver launch once a tile of each sample (`ao` also its
+    # occlusion rays), the samplers and the orthogonal camera go through
+    # the wavefront, the fishlens daylight room through kernel 2
+    "ao": ("bw_closest", "bw_any"),
+    "infobuffer": ("bw_closest",),
+    "wireframe": ("bw_closest",),
+    "debug_normal": ("bw_closest",),
+    "debug_prim_id": ("bw_closest",),
+    "debug_albedo": ("bw_closest",),
+    "mjitt": ("bw_closest", "bw_any"),
+    "halton": ("bw_closest", "bw_any"),
+    "orthogonal": ("bw_closest", "bw_any"),
+    "hidden": ("bw_closest", "bw_any"),
+    "fishlens": ("packet_bvh_closest", "packet_bvh_any"),
 }
 
 
@@ -1029,7 +1061,8 @@ def profiled_step(rt, spi):
         busy += e.duration_ns()
         if any(k in e.name() for k in ("bw_kernel", "pbvh_kernel")):
             trav += e.duration_ns()
-    return dict(launches_per_wave_iteration=round(n / max(iters, 1), 1),
+    return dict(launches_per_wave_iteration=(round(n / iters, 1) if iters
+                                             else None),
                 profiled_wave_iterations=iters, device_launches=n,
                 device_busy_s=round(busy / 1e9, 4),
                 step_wall_profiled_s=round(wall, 4),
@@ -1374,6 +1407,274 @@ def measured_phase(dev, wrappers, runs, pb):
                      for i in rt.scene.djmeasured_info.values()])
 
 
+# the demo scene under each of the techniques phase's paths: (path, the
+# scene's changes, spi)
+TECHNIQUE_PATHS = (
+    ("ao", dict(technique={"type": "ao"}), 1),
+    ("infobuffer", dict(technique={"type": "infobuffer"}), 1),
+    ("wireframe", dict(technique={"type": "wireframe"}), 1),
+    ("debug_normal", dict(technique={"type": "debug", "mode": "normal"}), 1),
+    ("debug_prim_id", dict(technique={"type": "debug", "mode": "prim id"}),
+     1),
+    ("debug_albedo", dict(technique={"type": "debug", "mode": "albedo"}), 1),
+    ("mjitt", dict(film={"sampler": "mjitt"}), 4),
+    ("halton", dict(film={"sampler": "halton"}), 4),
+    ("orthogonal", dict(camera={"type": "orthogonal", "scale": 1.2}), 4),
+    ("hidden", dict(entities={"back": dict(camera_visible=False)}), 2),
+)
+
+
+def demo_variant(changes):
+    """`demo_scene()` with `changes`: `technique` replaced, `film` and
+    `camera` updated, `entities` updated by name."""
+    from ignis_tpu_torch.scenes import demo_scene
+    s = demo_scene()
+    for key, val in changes.items():
+        if key == "technique":
+            s["technique"] = dict(val)
+        elif key == "entities":
+            s["entities"] = [dict(e, **val.get(e["name"], {}))
+                             for e in s["entities"]]
+        else:
+            s[key] = dict(s.get(key, {}), **val)
+    return s
+
+
+def driver_steps(path, rt, steps, spi, wrappers):
+    """Drive a path of the per-sample driver: counts to 0, a first step and
+    `steps` timed steps, counts read.  Each tile of each sample traces one
+    wave of `trace_wave`, tiles of the wave capacity: a single-intersection
+    technique launches each kernel of the path once a wave, a path one at
+    least once.  Returns what `timed_steps` does, with the waves."""
+    if rt._wavefront_ok or rt.tile_size != N_RAYS:
+        fail(f"{path}: not the per-sample driver over {N_RAYS}-lane tiles")
+    reset_counts(wrappers)
+    torch.cuda.synchronize()
+    ta = time.perf_counter()
+    rt.step(spi=spi)
+    first = time.perf_counter() - ta
+    ta = time.perf_counter()
+    for _ in range(steps):
+        rt.step(spi=spi)
+    dt = (time.perf_counter() - ta) / steps
+    launches = {f.__name__: f.launches for f in wrappers}
+    img = rt.currentFrame()
+    if img.shape != (rt.height, rt.width, 3) or not np.isfinite(img).all():
+        fail(f"{path} frame is not finite (height, width, 3)")
+    npix = rt.width * rt.height
+    waves = -(-npix // N_RAYS) * spi * (steps + 1)
+    simple = rt.scene.technique.type != "path"
+    for k in PATH_KERNELS[path]:
+        if launches[k] < waves or (simple and launches[k] != waves):
+            fail(f"{path}: {launches[k]} launches of {k} in {waves} waves")
+    return dict(
+        steps=steps, spi=spi, film=[rt.width, rt.height],
+        first_step_seconds=round(first, 4), step_seconds=round(dt, 4),
+        msamples_per_s=round(npix * spi / dt / 1e6, 4), launches=launches,
+        trace_waves=waves, mean=float(img.mean()))
+
+
+def sampler_cpu_vs_card(n, seed, dev):
+    """`sample_mjitt` and `sample_halton` (512x512 offsets) on the same `n`
+    lanes on the CPU and on the card, sample indices past the Halton
+    index's 2^32 wrap included: the same bits."""
+    from ignis_tpu_torch.render import sampler
+    r = np.random.default_rng(seed)
+    host = dict(
+        seed=torch.from_numpy(r.integers(0, 2**32, n).astype(np.int64)),
+        ctr=torch.from_numpy(r.integers(0, 2**20, n).astype(np.int64)),
+        index=torch.from_numpy(np.concatenate([
+            r.integers(0, 64, n // 2),
+            HALTON_PAST_WRAP + r.integers(0, 2**20, n - n // 2)])),
+        x=torch.from_numpy(r.integers(0, FILM, n).astype(np.int32)),
+        y=torch.from_numpy(r.integers(0, FILM, n).astype(np.int32)))
+    setup = sampler.build_halton_offsets(FILM, FILM)
+    offsets = torch.from_numpy(setup.pop("offsets"))
+    out = {}
+    for where, d in (("cpu", "cpu"), ("card", dev)):
+        a = {k: v.to(d) for k, v in host.items()}
+        mx, my, mc = sampler.sample_mjitt(a["seed"], a["ctr"], a["index"],
+                                          a["x"], a["y"])
+        hx, hy = sampler.sample_halton(setup, offsets.to(d), a["index"],
+                                       a["x"], a["y"], FILM)
+        out[where] = [t.cpu() for t in (mx, my, mc, hx, hy)]
+    differ = [int((a != b).sum()) for a, b in zip(out["cpu"], out["card"])]
+    if any(differ):
+        fail(f"techniques: sampler draws differ CPU vs card: {differ} "
+             "(mjitt x, y, counter, halton x, y)")
+    return dict(lanes=n, mjitt_differ=differ[:3], halton_differ=differ[3:],
+                halton_index_max=int(host["index"].max()))
+
+
+def camera_cpu_vs_card(n, seed, dev):
+    """Orthogonal and fishlens (circular, full, cropped) rays of the demo's
+    camera on the same `n` film points on the CPU and on the card, within
+    RAY_ABS."""
+    from ignis_tpu_torch.render.camera import generate_rays
+    from ignis_tpu_torch.scene.compile import load_and_compile
+    r = np.random.default_rng(seed)
+    nx = torch.from_numpy(r.uniform(-1, 1, n).astype(np.float32))
+    ny = torch.from_numpy(r.uniform(-1, 1, n).astype(np.float32))
+    errs = {}
+    for name, cam in (("orthogonal", {"type": "orthogonal", "scale": 1.2}),
+                      ("fishlens_circular", {"type": "fishlens"}),
+                      ("fishlens_full", {"type": "fishlens", "mode": "full"}),
+                      ("fishlens_cropped", {"type": "fishlens",
+                                            "mode": "cropped"})):
+        c = load_and_compile(demo_variant(dict(camera=cam)), FILM,
+                             FILM // 2).camera
+        a = generate_rays(c, nx, ny)
+        b = generate_rays(c, nx.to(dev), ny.to(dev))
+        errs[name] = max(float((u - v.cpu()).abs().max())
+                         for u, v in zip(a, b))
+    if not max(errs.values()) <= RAY_ABS:
+        fail(f"techniques: camera rays CPU vs card {errs} (> {RAY_ABS})")
+    return dict(lanes=n, max_abs_err=errs)
+
+
+def glare_tail(rt):
+    """`tonemap`, `imageinfo` and `evaluateGlare` on `rt`'s frame, seconds
+    each; the DGP against the port's `evaluate_glare` on the CPU over the
+    same frame (DGP_REL)."""
+    from ignis_tpu_torch.render.glare import (
+        GlareSettings, complete_settings, evaluate_glare_host,
+    )
+    t = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[name] = round(time.perf_counter() - ta, 4)
+        return out
+
+    tm = timed("tonemap", rt.tonemap)
+    info = timed("imageinfo", lambda: rt.imageinfo(histogram=True,
+                                                   percentile=True))
+    out, heat, mask = timed("evaluateGlare", rt.evaluateGlare)
+    frame = rt.currentFrame()
+    ref, _, ref_mask = evaluate_glare_host(
+        rt.scene.camera, frame, complete_settings(frame, GlareSettings()))
+    rel = abs(out.dgp - ref.dgp) / abs(ref.dgp)
+    if not (np.isfinite(out.dgp) and rel <= DGP_REL) or tm.shape != \
+            frame.shape or int(info["histogram"].sum()) != frame.shape[0] \
+            * frame.shape[1]:
+        fail(f"techniques: DGP {out.dgp} on the card, {ref.dgp} on the CPU, "
+             f"or tonemap / histogram of the wrong size")
+    return dict(seconds=t, dgp=out.dgp, dgp_cpu=ref.dgp, dgp_rel_diff=rel,
+                vertical_illuminance=out.vertical_illuminance,
+                glare_pixels=out.num_pixels,
+                mask_differ=int((mask != ref_mask).sum()),
+                imageinfo={k: float(info[k]) for k in (
+                    "min", "max", "avg", "median", "soft_max", "nan_count")})
+
+
+def checkpoint_round_trip(dev, d):
+    """Two steps of the demo, a checkpoint, two more; a fresh `Runtime`
+    loads the checkpoint and takes two steps: the two frames must be
+    bit-equal."""
+    from ignis_tpu_torch.api import Runtime
+    from ignis_tpu_torch.scenes import demo_scene
+    path = os.path.join(d, "checkpoint.npz")
+    a = Runtime(demo_scene(), width=FILM, height=FILM, seed=7, device=dev)
+    for _ in range(2):
+        a.step(spi=1)
+    a.saveCheckpoint(path)
+    for _ in range(2):
+        a.step(spi=1)
+    b = Runtime(demo_scene(), width=FILM, height=FILM, device=dev)
+    b.loadCheckpoint(path)
+    for _ in range(2):
+        b.step(spi=1)
+    fa, fb = a.currentFrame(), b.currentFrame()
+    differ = int((fa.view(np.int32) != fb.view(np.int32)).sum())
+    if differ or b.currentSampleCount() != 4:
+        fail(f"techniques: the resumed frame differs on {differ} values")
+    return dict(samples=b.currentSampleCount(), differ=differ,
+                mean=float(fa.mean()))
+
+
+def techniques_phase(dev, wrappers, runs, bw, pb):
+    """The single-intersection techniques, the samplers, the orthogonal and
+    fishlens cameras and the `Runtime` tail: the demo scene under `ao`,
+    `infobuffer`, `wireframe`, three debug modes, the mjitt and Halton
+    samplers, an orthogonal camera and an entity hidden from the camera (the
+    per-sample driver), each at 512x512 with its steps, a profiled step and
+    its mean held to the plain traversal's (rel 0.0); the samplers' draws
+    and the cameras' rays CPU vs card; the daylight room under a circular
+    fishlens camera on kernel 2 and the glare tail on its frame; the
+    denoiser on a demo frame; a checkpoint round trip.  Adds the paths'
+    runs to `runs` and emits the `techniques` line."""
+    from ignis_tpu_torch.api import Runtime
+    from ignis_tpu_torch.render.denoise import denoise_runtime
+    from ignis_tpu_torch.scenes import daylight_scene
+    t0 = time.perf_counter()
+    bw_patch = dict(bw_closest=bw.bw_closest_plain, bw_any=bw.bw_any_plain)
+    paths = {}
+    rt_path = None
+    for path, changes, spi in TECHNIQUE_PATHS:
+        ta = time.perf_counter()
+        rt = Runtime(demo_variant(changes), width=FILM, height=FILM,
+                     device=dev)
+        if rt._wavefront_ok:
+            runs[path] = timed_steps(path, rt, 1, spi, wrappers)
+        else:
+            runs[path] = driver_steps(path, rt, 1, spi, wrappers)
+        prof = profiled_step(rt, spi)
+        means = kernel_and_plain_means(path, rt, spi, bw_patch, max_rel=0.0)
+        paths[path] = dict(**runs[path], **prof, **means,
+                           technique=rt.scene.technique.type,
+                           sampler=rt.scene.sampler,
+                           camera=rt.scene.camera.type,
+                           wavefront=rt._wavefront_ok,
+                           seconds=round(time.perf_counter() - ta, 3))
+        if path == "mjitt":
+            rt_path = rt
+    t1 = time.perf_counter()
+    checks = dict(samplers=sampler_cpu_vs_card(N_RAYS, 31, dev),
+                  cameras=camera_cpu_vs_card(N_RAYS, 32, dev))
+    t2 = time.perf_counter()
+    s = daylight_scene()
+    s["camera"] = dict(s["camera"], type="fishlens", mode="circular")
+    rt = Runtime(s, width=FILM, height=FILM, device=dev)
+    runs["fishlens"] = timed_steps("fishlens", rt, 2, 1, wrappers)
+    prof = profiled_step(rt, 1)
+    means = kernel_and_plain_means("fishlens", rt, 1, dict(
+        packet_bvh_closest=pb.packet_bvh_closest_plain,
+        packet_bvh_any=pb.packet_bvh_any_plain), max_rel=0.0)
+    rt.reset()
+    rt.step(spi=1)
+    glare = glare_tail(rt)
+    paths["fishlens"] = dict(**runs["fishlens"], **prof, **means,
+                             camera="fishlens circular", glare=glare,
+                             tris=int(rt.tables["tri_v0"].shape[0]))
+    t3 = time.perf_counter()
+    torch.cuda.synchronize()
+    ta = time.perf_counter()
+    den = denoise_runtime(rt_path)
+    torch.cuda.synchronize()
+    denoise = dict(seconds=round(time.perf_counter() - ta, 4),
+                   film=list(den.shape[:2]), mean=float(den.mean()),
+                   mean_before=float(rt_path.currentFrame().mean()))
+    if not np.isfinite(den).all():
+        fail("techniques: the denoised frame is not finite")
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "techniques")
+    os.makedirs(d, exist_ok=True)
+    ck = checkpoint_round_trip(dev, d)
+    emit("techniques", t0, paths=paths, checks=checks, denoise=denoise,
+         checkpoint=ck,
+         kernel_launches_per_step={
+             p: {k: runs[p]["launches"][k] / (runs[p]["steps"] + 1)
+                 for k in PATH_KERNELS[p]}
+             for p in [q for q, _, _ in TECHNIQUE_PATHS] + ["fishlens"]},
+         part_seconds=dict(demo_paths=round(t1 - t0, 3),
+                           checks=round(t2 - t1, 3),
+                           fishlens=round(t3 - t2, 3),
+                           tail=round(time.perf_counter() - t3, 3)))
+
+
 def registry_change(rt, name, value, spi, m0):
     """Set a registry parameter and render the next frame (`render_mean`;
     `m0` is its mean before): the frame must change, and every table stay
@@ -1668,6 +1969,10 @@ def main():
 
     # ---- 14. measured: Klems, TensorTree and Dupuy-Jakob materials
     measured_phase(dev, wrappers, runs, pb)
+
+    # ---- 15. techniques: the single-intersection techniques, samplers,
+    # cameras, the per-sample driver and the Runtime tail
+    techniques_phase(dev, wrappers, runs, bw, pb)
 
     # ---- the kernels line: launches are those of the main paths' runs, in
     # all and for each path that has to launch the kernel

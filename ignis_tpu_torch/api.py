@@ -1,10 +1,16 @@
-"""Runtime API.  Counterpart of ignis_tpu/api.py for the `path` and `volpath`
-techniques.
+"""Runtime API.  Counterpart of ignis_tpu/api.py for every technique but the
+light tracer and the photon mapper.
 
 `Runtime` owns the compiled scene, builds the acceleration tables, drives
-progressive accumulation (`step()`) and exposes ray-list tracing (`trace()`).
+progressive accumulation (`step()`) and exposes ray-list tracing (`trace()`),
+checkpoints, tonemapping, image statistics and glare analysis of the frame.
 The framebuffer is an unnormalized running sum with a sample count: consumers
 divide by `currentSampleCount()` (or call `currentFrame()`).
+
+`step()` runs the regenerating wavefront (`render_wavefront`) where it can;
+the single-intersection techniques and scenes whose entities differ in camera
+and bounce visibility go through the per-sample driver instead: for each
+sample, `trace_wave` over tiles of `tile_size` pixels.
 
     rt = Runtime(scene_dict_or_path, width=512, height=512)   # on the card
     rt.step(spi=4)
@@ -22,7 +28,9 @@ import numpy as np
 import torch
 
 from ignis_tpu_torch.convert import tables_from_numpy
-from ignis_tpu_torch.render.integrator import render_wavefront, trace_wave
+from ignis_tpu_torch.render.integrator import (
+    SIMPLE_TECHNIQUES, render_wavefront, trace_wave,
+)
 from ignis_tpu_torch.scene.compile import (
     CompiledScene, check_slice, load_and_compile,
 )
@@ -191,6 +199,13 @@ class Runtime:
         self._dev_stats = torch.zeros(9, dtype=torch.float32, device=device)
         self._dev_stats_capacity = 0
         self._first_step_done = False
+        # the regenerating wavefront mixes camera and bounce rays in one
+        # wave, so it needs both visibilities to agree per entity; else, and
+        # for the single-intersection techniques, the per-sample driver
+        ent_flags = np.asarray(scene.tables["ent_flags"])
+        self._wavefront_ok = bool(
+            (((ent_flags & 0x1) != 0) == ((ent_flags & 0x4) != 0)).all()
+            and scene.technique.type not in SIMPLE_TECHNIQUES)
 
     # ------------------------------------------------------------------ info
     @property
@@ -276,23 +291,69 @@ class Runtime:
         self.stats.add("Iterations", 1)
 
     def _step_impl(self, spi=1):
-        npix = self.scene.width * self.scene.height
-        total = npix * spi
-        capacity = int(min(self.tile_size, max(8192, 1 << int(np.ceil(
-            np.log2(max(total, 1)))))))
-        with torch.no_grad():
-            fb, wstats = render_wavefront(
-                self.scene, self.tables, self.iteration, self.frame,
-                self.seed, capacity=capacity, spi=spi)
-        self._accum += fb  # in place: the running sum lives on the device
-        self._dev_stats += wstats
-        self._dev_stats_capacity = capacity
+        w = self.scene.width
+        npix = w * self.scene.height
+        if self._wavefront_ok:
+            total = npix * spi
+            capacity = int(min(self.tile_size, max(8192, 1 << int(np.ceil(
+                np.log2(max(total, 1)))))))
+            with torch.no_grad():
+                fb, wstats = render_wavefront(
+                    self.scene, self.tables, self.iteration, self.frame,
+                    self.seed, capacity=capacity, spi=spi)
+            self._accum += fb  # in place: the running sum lives on the device
+            self._dev_stats += wstats
+            self._dev_stats_capacity = capacity
+        else:
+            # the per-sample driver: every tile is `tile` lanes wide, the
+            # last one padded with copies of the film's last pixel, of which
+            # only the first `count` rows are added
+            tile = min(self.tile_size, npix)
+            for sample in range(spi):
+                for start in range(0, npix, tile):
+                    count = min(tile, npix - start)
+                    idx = torch.clamp_max(torch.arange(
+                        start, start + tile, dtype=torch.int32,
+                        device=self.device), npix - 1)
+                    with torch.no_grad():
+                        color = trace_wave(self.scene, self.tables, idx % w,
+                                           idx // w, sample, self.iteration,
+                                           self.frame, self.seed)
+                    self._accum[start:start + count] += color[:count]
         self._samples += spi
         self.iteration += 1
 
+    # -------------------------------------------------------- checkpointing
+    def saveCheckpoint(self, path):
+        """Save the render state: the framebuffer sum, the sample, iteration
+        and frame counters and the seed.  The random numbers are keyed on
+        (sample, iteration, frame, x, y, seed), so a resumed run steps to the
+        same bits as an uninterrupted one."""
+        np.savez_compressed(
+            path, accum=self._accum.cpu().numpy(), samples=self._samples,
+            iteration=self.iteration, frame=self.frame, seed=self.seed,
+            width=self.scene.width, height=self.scene.height)
+
+    def loadCheckpoint(self, path):
+        """Restore a state saved by `saveCheckpoint`; a checkpoint of another
+        film size raises `ValueError`."""
+        with np.load(path) as z:
+            if (int(z["width"]) != self.scene.width
+                    or int(z["height"]) != self.scene.height):
+                raise ValueError(
+                    f"checkpoint film {int(z['width'])}x{int(z['height'])} "
+                    f"does not match runtime "
+                    f"{self.scene.width}x{self.scene.height}")
+            self._accum = torch.from_numpy(
+                np.array(z["accum"], np.float32)).to(self.device)
+            self._samples = int(z["samples"])
+            self.iteration = int(z["iteration"])
+            self.frame = int(z["frame"])
+            self.seed = int(z["seed"])
+
     def dumpStats(self) -> str:
         """Section timers and quantities, plus the wavefront's occupancy and
-        ray counters."""
+        ray counters (none when only the per-sample driver ran)."""
         ds = self._dev_stats.cpu().numpy()
         if ds[0] > 0:
             cap = max(self._dev_stats_capacity, 1)
@@ -320,6 +381,51 @@ class Runtime:
     def rawFramebuffer(self) -> np.ndarray:
         w, h = self.scene.width, self.scene.height
         return self._accum.cpu().numpy().reshape(h, w, 3)
+
+    # ------------------------------------------------------- image analysis
+    def tonemap(self, method="aces", scale=1.0, exposure_factor=1.0,
+                offset=0.0, gamma=True):
+        """The current frame tonemapped, (H, W, 3) float in [0, 1] (numpy).
+        `method`: none, reinhard, modified, aces, uncharted2, or its
+        number."""
+        from ignis_tpu_torch.render.tonemap import METHODS
+        from ignis_tpu_torch.render.tonemap import tonemap as _tm
+        m = METHODS[method] if isinstance(method, str) else int(method)
+        out = _tm(self._frame_tensor(), method=m, scale=scale,
+                  exposure_factor=exposure_factor, exposure_offset=offset,
+                  use_gamma=gamma)
+        return np.clip(out.cpu().numpy(), 0.0, 1.0)
+
+    def imageinfo(self, scale=1.0, bins=64, histogram=False,
+                  percentile=False):
+        """Luminance min / max / avg and NaN / Inf / negative pixel counts of
+        the current frame (+ the histogram and soft percentiles); numpy
+        values."""
+        from ignis_tpu_torch.render.tonemap import image_info
+        out = image_info(self._frame_tensor(), scale=scale, bins=bins,
+                         histogram=histogram, percentile=percentile)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def evaluateGlare(self, settings=None, **kw):
+        """Daylight glare probability of the current frame.
+
+        Returns (GlareOutput, heatmap (H, W, 3), glare-source mask (H, W)),
+        numpy.  Where `settings.avg` or `settings.max` is not positive, the
+        frame's average or largest luminance (finite pixels) is used."""
+        from ignis_tpu_torch.render.glare import (
+            GlareSettings, complete_settings, evaluate_glare_host,
+        )
+        if settings is None:
+            settings = GlareSettings(**kw)
+        img = self._frame_tensor()
+        settings = complete_settings(img, settings)
+        return evaluate_glare_host(self.scene.camera, img, settings)
+
+    def _frame_tensor(self):
+        """The normalized frame (H, W, 3) on the device, as `currentFrame`
+        computes it."""
+        w, h = self.scene.width, self.scene.height
+        return (self._accum / float(max(1, self._samples))).reshape(h, w, 3)
 
     # ------------------------------------------------------------------ trace
     def trace(self, rays, spp=1) -> np.ndarray:
@@ -354,3 +460,8 @@ class Runtime:
                                   self.frame, self.seed, org=org,
                                   direction=dirs, tmin=tmin, tmax=tmax)
         return (acc / float(spp)).cpu().numpy()
+
+
+def load_scene(source, **kw) -> Runtime:
+    """`Runtime(source, **kw)`: a scene file, a scene dict or JSON text."""
+    return Runtime(source, **kw)

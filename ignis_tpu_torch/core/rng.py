@@ -27,6 +27,14 @@ def _u32(x):
     return int(x) & M32
 
 
+def mul_u32(a, c):
+    """(a * c) mod 2^32 for uint32 values a and c (int64 carrier; `c` a
+    tensor or a Python int), in 16-bit halves of `c` so that no product
+    leaves int64: a full 32 x 32-bit product would need 64 bits unsigned."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & M32
+
+
 def hash_init():
     return _FNV_INIT
 

@@ -1,4 +1,5 @@
-"""Wavefront path tracer (the `path` and `volpath` techniques).
+"""Wavefront path tracer (the `path` and `volpath` techniques), and the
+dispatch of the single-intersection techniques (`render/techniques.py`).
 
 Counterpart of ignis_tpu/render/integrator.py.  Every bounce processes a
 fixed-capacity ray wave with masked lanes.  Technique logic (NEE, MIS
@@ -67,7 +68,9 @@ from ignis_tpu_torch.ops.spheres import sphere_any, sphere_closest
 from ignis_tpu_torch.ops.tlas import tlas_any, tlas_closest
 from ignis_tpu_torch.render.camera import generate_rays, pixel_coord_from_xy
 from ignis_tpu_torch.render.sampler import sample_pixel
-from ignis_tpu_torch.scene.compile import LIGHT_AREA_PLANE
+from ignis_tpu_torch.scene.compile import (
+    LIGHT_AREA_PLANE, REFUSED_TECHNIQUES,
+)
 
 OFFSET = float(np.float32(0.001))  # ray offset
 
@@ -76,6 +79,9 @@ RAY_LIGHT = 0x2
 RAY_BOUNCE = 0x4
 RAY_SHADOW = 0x8
 
+# techniques of one intersection a ray, traced by `trace_wave` alone
+SIMPLE_TECHNIQUES = ("debug", "ao", "wireframe", "lightvisibility",
+                     "camera_check", "infobuffer")
 
 
 def _handle_color(c, clamp_value):
@@ -343,7 +349,7 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
     bounces.
     """
     tech = scene.technique
-    if tech.type not in ("path", "volpath"):
+    if tech.type in REFUSED_TECHNIQUES:
         raise NotImplementedError(
             f"technique '{tech.type}' is not ported to ignis_tpu_torch yet")
     is_vol = tech.type == "volpath"
@@ -675,10 +681,13 @@ def _volpath_bounce(scene, tables, st, surf, mat_type, specular, can_bounce,
 def _emit_camera(scene, x, y, sample, iteration, frame, user_seed,
                  tables=None, spi=1):
     """Camera emitter: seed, sampler draws, ray.  `sample` may be a per-lane
-    tensor; `iteration`, `frame`, `user_seed` are Python ints."""
+    tensor; `iteration`, `frame`, `user_seed` are Python ints.  The
+    low-discrepancy samplers read the sample index iteration * spi + sample."""
     seed = rng.create_seed(sample, iteration, frame, x, y, user_seed)
     counter = torch.ones_like(seed)
-    rx, ry, counter = sample_pixel(scene.sampler, seed, counter)
+    spp_index = iteration * spi + sample
+    rx, ry, counter = sample_pixel(scene, tables, seed, counter, spp_index,
+                                   x, y)
     nx, ny = pixel_coord_from_xy(x, y, scene.width, scene.height, rx, ry)
     # camera pose from the parameter registry (__camera_* keys), so pose
     # changes take effect between steps
@@ -744,7 +753,9 @@ def trace_wave(scene, tables, x, y, sample, iteration, frame, user_seed,
 
     x, y: (N,) integer tensors; their device is the device of the run.
     If org/direction are given, acts as the list emitter: no pixel-sampler
-    draws, rays used as provided.
+    draws, rays used as provided.  The single-intersection techniques
+    (`SIMPLE_TECHNIQUES`) go to `techniques.simple_technique_wave` under
+    either emitter.
 
     differentiable=True runs a fixed `min(max_depth, 64)` bounces over every
     lane, dead lanes masked, with no host sync and no tail cascade (the
@@ -757,7 +768,15 @@ def trace_wave(scene, tables, x, y, sample, iteration, frame, user_seed,
     n = x.shape[0]
     dev = x.device
 
+    if scene.technique.type in SIMPLE_TECHNIQUES:
+        from ignis_tpu_torch.render.techniques import simple_technique_wave
+        return simple_technique_wave(scene, tables, x, y, sample, iteration,
+                                     frame, user_seed, org, direction, tmin,
+                                     tmax)
+
     if org is None:
+        # the camera emitter is called without `spi` here, as in the
+        # reference: its low-discrepancy index is iteration + sample
         seed, counter, org, direction, tmin, tmax = _emit_camera(
             scene, x, y, sample, iteration, frame, user_seed, tables)
     else:
@@ -847,7 +866,8 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
 
     trivial = _flags_trivial(scene)
     # mixed camera/bounce lanes per wave: exact per-ray visibility needs
-    # camera == bounce masks (the Runtime refuses scenes that violate it)
+    # camera == bounce masks (the Runtime runs scenes that differ through
+    # the per-sample driver)
     prim_mask = None if trivial else _tri_mask_for(tables, RAY_BOUNCE)
     shadow_mask = (None if _flags_trivial(scene, RAY_SHADOW)
                    else _tri_mask_for(tables, RAY_SHADOW))
@@ -946,6 +966,12 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
             [torch.stack([zero, _count(tail["alive"]), one, zero]), q])
         tail = st_next
     return fb_out(), stats
+
+
+def _gather_mat_type(scene, tables, mat_id):
+    """BSDF type id of each lane's material."""
+    types = device_const(tuple(scene.bsdf_types), torch.int32, mat_id.device)
+    return gather_rows(types, mat_id)
 
 
 def _area_light_radiance(scene, tables, light_idx):

@@ -7,9 +7,9 @@ entities keeps one local copy plus transform records, `CompiledScene.instanced`)
 analytic sphere records (`sph_rows`), array-of-struct material/light parameter
 tables, and a static `CompiledScene` the integrator specialises on.
 
-Branches whose helpers are not ported yet (the halton sampler) raise
-`NotImplementedError` when a scene reaches them; `check_slice` rejects what compiles but the integrator
-does not cover yet.  Nothing is silently skipped or approximated.
+`check_slice` rejects what compiles but the integrator does not cover yet
+(the light tracer and the photon mapper), with `NotImplementedError`.
+Nothing is silently skipped or approximated.
 """
 
 from __future__ import annotations
@@ -1383,8 +1383,7 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
 
     halton_setup = None
     if sampler == "halton":
-        raise NotImplementedError(
-            "the halton sampler is not ported to ignis_tpu_torch yet")
+        from ignis_tpu_torch.render.sampler import build_halton_offsets
         halton_setup = build_halton_offsets(w, h)
 
     tables = {
@@ -1495,6 +1494,8 @@ _SLICE_BSDFS = (BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PHONG,
 # normal (and tangent) set, 4 a PExpr normal
 _SLICE_NMODS = (0, 1, 2, 3, 4)
 _SLICE_SELECTORS = ("uniform", "simple", "cdf", "hierarchy")
+# the light tracer and the photon mapper, by every name the reference takes
+REFUSED_TECHNIQUES = ("lighttracer", "lt", "photonmapper", "ppm", "sppm")
 
 
 def check_slice(cs: CompiledScene) -> None:
@@ -1504,14 +1505,10 @@ def check_slice(cs: CompiledScene) -> None:
         raise NotImplementedError(
             f"{what} is not ported to ignis_tpu_torch yet")
 
-    if cs.technique.type not in ("path", "volpath"):
+    if cs.technique.type in REFUSED_TECHNIQUES:
         no(f"technique '{cs.technique.type}'")
     if cs.technique.light_selector not in _SLICE_SELECTORS:
         no(f"light selector '{cs.technique.light_selector}'")
-    if cs.sampler not in ("independent", "uniform"):
-        no(f"sampler '{cs.sampler}'")
-    if cs.camera.type != "perspective":
-        no(f"camera type '{cs.camera.type}'")
     for name, t, tb in zip(cs.material_names, cs.bsdf_types,
                            cs.bsdf_types_b):
         if t not in _SLICE_BSDFS or (tb >= 0 and tb not in _SLICE_BSDFS):
@@ -1519,9 +1516,6 @@ def check_slice(cs: CompiledScene) -> None:
                f"(material '{name}')")
     if any(k not in _SLICE_NMODS for k in cs.nmod_kinds):
         no(f"normal modifier kinds {sorted(set(cs.nmod_kinds))}")
-    fl = np.asarray(cs.tables["ent_flags"])
-    if (((fl & 0x1) != 0) != ((fl & 0x4) != 0)).any():
-        no("camera_visible != bounce_visible entity flags")
 
 
 def _sun_direction(lobj) -> np.ndarray:

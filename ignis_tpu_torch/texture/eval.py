@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ignis_tpu_torch.core.rng import M32, _u32
+from ignis_tpu_torch.core.rng import M32, _u32, mul_u32
 from ignis_tpu_torch.core.vec import device_const, device_scalar, to_int32
 from ignis_tpu_torch.texture.loader import (
     FILTER_NEAREST, TEX_BRICK, TEX_CHECKERBOARD, TEX_EXPR, TEX_IMAGE,
@@ -137,17 +137,10 @@ def _brick(tex, uv):
     return c0 * (1.0 - k) + c1 * k
 
 
-def _mul_u32(a, c):
-    """(a * c) mod 2^32 for uint32 values a (int64 carrier) and a Python
-    constant c, in halves so that no product leaves int64."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & M32
-
-
 def _hash2(ix, iy, seed):
-    h = _mul_u32(ix, 0x85EBCA6B) ^ _mul_u32(iy, 0xC2B2AE35) ^ (seed & M32)
+    h = mul_u32(ix, 0x85EBCA6B) ^ mul_u32(iy, 0xC2B2AE35) ^ (seed & M32)
     h = h ^ (h >> 13)
-    h = _mul_u32(h, 0x27D4EB2F)
+    h = mul_u32(h, 0x27D4EB2F)
     h = h ^ (h >> 15)
     return h
 

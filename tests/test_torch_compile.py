@@ -136,9 +136,15 @@ def env_cdf_scene(d):
     return s
 
 
+def halton_scene():
+    s = copy.deepcopy(create_flat_scene())
+    s["film"] = {"size": [8, 8], "sampler": "halton"}
+    return s
+
+
 SCENES = {"demo": demo_scene, "flat": create_flat_scene, "ico": ico_scene,
           "dof": dof_scene, "lights": lights_scene, "daylight": daylight_scene,
-          **LIGHTS}
+          "halton": halton_scene, **LIGHTS}
 # scenes that write their images into a directory first
 TEXTURED = {"textured": textured_scene, "parameters": param_scene,
             "features": features_scene, "light env cdf": env_cdf_scene,
@@ -266,7 +272,8 @@ def test_type_constants_keep_their_values():
             assert getattr(jc, name) == getattr(tc, name), name
 
 
-@pytest.mark.parametrize("name", ["demo", "flat", "ico"] + sorted(TEXTURED)
+@pytest.mark.parametrize("name", ["demo", "flat", "ico", "halton"]
+                         + sorted(TEXTURED)
                          + sorted(LIGHTS) + ["media scene", "measured scene"])
 def test_runtime_tables_equal(name, tmp_path):
     """bw_tables / build_bvh / build_packet_bvh / pack_tri_shade as the two
@@ -297,12 +304,15 @@ def test_runtime_tables_equal(name, tmp_path):
             tt["pb_nodes"].view(np.int32),
             build_pb_nodes(jt["pb_rows"]).view(np.int32))
     assert "tri_shade" in tt
-    # the light tree's codes are uint32: the port carries them in int64
+    # the light tree's codes are uint32, and the halton offsets int32 in the
+    # reference (without x64): the port carries both in int64
     _assert_tables_equal(jt, tt, keys=set(tt) - {"pb_nodes", "bw_ctree",
-                                                 "lh_codes"})
-    if "lh_codes" in tt:
-        assert tt["lh_codes"].dtype == np.int64
-        np.testing.assert_array_equal(tt["lh_codes"], jt["lh_codes"])
+                                                 "lh_codes", "halton_offsets"})
+    for k in ("lh_codes", "halton_offsets"):
+        if k in tt:
+            assert tt[k].dtype == np.int64
+            np.testing.assert_array_equal(tt[k], jt[k])
+    assert ("halton_offsets" in tt) == (name == "halton")
     if name in MEDIA:
         assert {"medium_data", "medium_shader", "medium_majorant",
                 "ent_inner_medium", "ent_outer_medium", "vol2_density",
@@ -415,14 +425,10 @@ def _flat_bsdf(bsdf):
 
 
 OUT_OF_SLICE = {
-    "technique ao": lambda: _flat_with(technique={"type": "ao"}),
-    "sampler halton": lambda: _flat_with(
-        film={"size": [8, 8], "sampler": "halton"}),
-    "sampler mjitt": lambda: _flat_with(
-        film={"size": [8, 8], "sampler": "mjitt"}),
-    "camera orthogonal": lambda: _flat_with(
-        camera=dict(create_flat_scene()["camera"], type="orthogonal")),
-    "camera != bounce visibility": lambda: _flat_entity(camera_visible=False),
+    "technique lighttracer": lambda: _flat_with(
+        technique={"type": "lighttracer"}),
+    "technique photonmapper": lambda: _flat_with(
+        technique={"type": "photonmapper"}),
 }
 
 def _flat_material(*bsdfs):
@@ -444,6 +450,25 @@ def _with_checker(s):
 # (Runtime, index of the "ground" material) says what the compiled scene
 # must hold.
 MOVED_INTO_SLICE = {
+    # the single-intersection techniques, the samplers and cameras beside
+    # the perspective one, and the per-sample driver
+    "technique ao": (lambda: _flat_with(technique={"type": "ao"}),
+                     lambda rt, g: rt.scene.technique.type == "ao"
+                     and not rt._wavefront_ok),
+    "sampler halton": (lambda: _flat_with(
+        film={"size": [8, 8], "sampler": "halton"}),
+        lambda rt, g: tuple(rt.tables["halton_offsets"].shape) == (64,)
+        and rt.scene.halton_setup["stride"] == 8 * 9),
+    "sampler mjitt": (lambda: _flat_with(
+        film={"size": [8, 8], "sampler": "mjitt"}),
+        lambda rt, g: rt.scene.sampler == "mjitt"),
+    "camera orthogonal": (lambda: _flat_with(
+        camera=dict(create_flat_scene()["camera"], type="orthogonal")),
+        lambda rt, g: rt.scene.camera.type == "orthogonal"),
+    "camera != bounce visibility": (
+        lambda: _flat_entity(camera_visible=False),
+        lambda rt, g: int(rt.tables["ent_flags"][0]) == 0xE
+        and not rt._wavefront_ok),
     # participating media and the volpath technique: the flat scene's
     # entity holds a medium (the ground material stays diffuse)
     "technique volpath": (lambda: _flat_with(technique={"type": "volpath"}),

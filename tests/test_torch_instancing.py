@@ -39,6 +39,18 @@ from ignis_tpu_torch.scenes import instanced_scene
 from test_instancing import _scene
 from test_torch_spheres import sphere_scene
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops on these small inputs run faster on one intra-op
+    thread, and the test workers sharing the CPU then do not oversubscribe
+    it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = np.float32
 MIXED = ["red", "gold", "white"]
 

@@ -9,6 +9,7 @@ test_torch_bsdf_breadth.py.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ignis_tpu.render.integrator import trace_wave as j_trace_wave
@@ -18,6 +19,17 @@ from ignis_tpu_torch.convert import tables_from_numpy
 from ignis_tpu_torch.render.integrator import trace_wave
 from ignis_tpu_torch.scene.compile import load_and_compile as t_compile
 from ignis_tpu_torch.scenes import materials_scene
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops on these small inputs run faster on one intra-op
+    thread, and the test workers sharing the CPU then do not oversubscribe
+    it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _pixels(w, h):

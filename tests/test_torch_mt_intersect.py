@@ -38,6 +38,18 @@ from test_torch_packet_bvh import (
     RULE_HITS, RULE_RAYS, RULE_TRI, face_rays, rule_rays, same_bits,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops on these small inputs run faster on one intra-op
+    thread, and the test workers sharing the CPU then do not oversubscribe
+    it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = np.float32
 
 

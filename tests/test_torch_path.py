@@ -37,6 +37,17 @@ from ignis_tpu_torch.scenes import big_scene, demo_scene
 from test_torch_compile import dof_scene, ico_scene, lights_scene
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops on these small inputs run faster on one intra-op
+    thread, and the test workers sharing the CPU then do not oversubscribe
+    it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _with_depth(scene, depth):
     scene = dict(scene)
     scene["technique"] = dict(scene["technique"], max_depth=depth)

@@ -7,10 +7,23 @@ tests' eps and rel.  Helpers: tests/test_torch_gradients.py.
 """
 
 import numpy as np
+import pytest
+import torch
 
 from conftest import create_flat_scene
 from ignis_tpu_torch.utils.exr import write_exr
 from test_torch_gradients import SHALLOW, Loss, _check_fd, _compile, _hold_to_jax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops on these small inputs run faster on one intra-op
+    thread, and the test workers sharing the CPU then do not oversubscribe
+    it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_grad_texture_texel(tmp_path):

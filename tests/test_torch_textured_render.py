@@ -32,6 +32,17 @@ from ignis_tpu_torch.scenes import textured_scene
 from ignis_tpu_torch.utils.exr import write_exr
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops on these small inputs run faster on one intra-op
+    thread, and the test workers sharing the CPU then do not oversubscribe
+    it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pixels(w, h):
     idx = np.arange(w * h, dtype=np.int32)
     return idx % w, idx // w

@@ -7,11 +7,23 @@ different workers.
 """
 
 import pytest
+import torch
 
 from ignis_tpu_torch.convert import tables_from_numpy
 from test_torch_tlas import (  # noqa: F401
     _assert_gate, _both, _port_tables, _rays, scenes,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops on these small inputs run faster on one intra-op
+    thread, and the test workers sharing the CPU then do not oversubscribe
+    it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("mask_bit", [0x1, 0x4, 0x8])

@@ -9,10 +9,22 @@ tests/test_torch_tlas.py, whose helpers and tolerances it uses, so that
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ignis_tpu_torch.convert import tables_from_numpy
 from test_torch_packet_bvh import RULE_HITS, RULE_RAYS
 from test_torch_tlas import _both, _rule_case, _walk_ray_by_ray
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's eager ops on these small inputs run faster on one intra-op
+    thread, and the test workers sharing the CPU then do not oversubscribe
+    it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("case", sorted(RULE_RAYS) + ["faces"])
