@@ -48,14 +48,22 @@ functions CPU vs card; the gradient with respect to the media's rows and
 shader rows.  Last measured materials (`measured`): the daylight room with a
 Klems and a TensorTree pane in its window and Dupuy-Jakob spheres, through
 `Runtime.step` on the packet-BVH kernels, held to its plain traversal, and
-its gradient with respect to the material colors.  Last the techniques
+its gradient with respect to the material colors.  Then the techniques
 (`techniques`): the demo box under `ao`, `infobuffer`, `wireframe` and three
 debug modes, under the mjitt and Halton samplers, an orthogonal camera and an
 entity hidden from the camera (the per-sample driver), each held to its plain
 traversal; the samplers' draws and the cameras' rays CPU vs card; the
 daylight room under a fishlens camera on the packet-BVH kernels, with
 `tonemap`, `imageinfo` and `evaluateGlare` on its frame (the DGP held to the
-CPU's); the denoiser; a checkpoint's bitwise resume.  Every phase prints one
+CPU's); the denoiser; a checkpoint's bitwise resume.  Last light transport
+(`transport`): the demo box (the Baldwin-Weber kernels) and the daylight
+room (the packet-BVH kernels; the sun, the sky and 256 spots emit) under the
+light tracer, 262,144 light paths a step in four tiles, each frame's mean
+held to the plain traversal's within 1e-5 (the splat's atomic sums differ in
+order); the demo box under the photon mapper with 1,000,000 photons a step,
+its photon buffer and frame held bit for bit to the plain traversal's, its
+photon pass, grid and camera pass timed apart and one gather profiled; light
+emission of every light type of both scenes CPU vs card.  Every phase prints one
 JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
 falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
@@ -797,6 +805,12 @@ PATH_KERNELS = {
     "orthogonal": ("bw_closest", "bw_any"),
     "hidden": ("bw_closest", "bw_any"),
     "fishlens": ("packet_bvh_closest", "packet_bvh_any"),
+    # the transport phase: the light tracer's tiles launch closest and
+    # any-hit rays (the camera connections), the photon mapper's passes
+    # closest hits only
+    "lighttracer": ("bw_closest", "bw_any"),
+    "lighttracer_room": ("packet_bvh_closest", "packet_bvh_any"),
+    "photonmapper": ("bw_closest",),
 }
 
 
@@ -1713,6 +1727,307 @@ def sweep_runtime(film, dev):
     return rt
 
 
+# the transport phase: the light tracer on the demo box (kernel 1) and the
+# daylight room (kernel 2), the photon mapper on the demo box (kernel 1)
+LT_DEPTH = 6              # max_depth of the light-tracer paths
+PPM_DEPTH = 6             # max_depth of the photon mapper's camera paths
+LT_MEAN_REL = 1e-5        # light tracer vs plain traversal, frame mean: the
+                          # splat's atomic sums are the only difference of
+                          # order between the two
+
+
+def light_path_steps(path, rt, steps, spi, wrappers, expect):
+    """Drive a path of the light tracer or the photon mapper: counts to 0,
+    a first step (its frame kept) and `steps` timed steps, counts read.
+    Each kernel of `expect` must have launched `expect[name]` times a step.
+    Returns (the dict of `driver_steps` with the peak memory, the first
+    step's frame)."""
+    reset_counts(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ta = time.perf_counter()
+    rt.step(spi=spi)
+    first = time.perf_counter() - ta
+    frame0 = rt.currentFrame()
+    ta = time.perf_counter()
+    for _ in range(steps):
+        rt.step(spi=spi)
+    dt = (time.perf_counter() - ta) / steps
+    peak = torch.cuda.max_memory_allocated()
+    launches = {f.__name__: f.launches for f in wrappers}
+    img = rt.currentFrame()
+    if img.shape != (rt.height, rt.width, 3) or not np.isfinite(img).all():
+        fail(f"{path} frame is not finite (height, width, 3)")
+    for k, per_step in expect.items():
+        if launches[k] != per_step * (steps + 1):
+            fail(f"{path}: {launches[k]} launches of {k} in {steps + 1} "
+                 f"steps, not {per_step} a step")
+    if rt.tile_size != N_RAYS:
+        fail(f"{path}: tiles of {rt.tile_size} lanes, not {N_RAYS}")
+    npix = rt.width * rt.height
+    return dict(
+        steps=steps, spi=spi, film=[rt.width, rt.height],
+        first_step_seconds=round(first, 4), step_seconds=round(dt, 4),
+        mpaths_per_s=round(npix * spi / dt / 1e6, 4), launches=launches,
+        launches_per_step={k: v // (steps + 1) for k, v in launches.items()
+                           if v}, peak_memory_bytes=int(peak),
+        mean=float(img.mean())), frame0
+
+
+def plain_frame(rt, spi, patches):
+    """The frame of `rt`'s first iteration, rendered again with `patches`
+    ({name in the integrator: plain version}) in the kernels' place."""
+    from ignis_tpu_torch.render import integrator
+    rt.reset()
+    with mock.patch.multiple(integrator, **patches):
+        rt.step(spi=spi)
+    return rt.currentFrame()
+
+
+def lt_against_plain(path, frame0, plain):
+    """The light tracer's first frame against the plain traversal's: the
+    means within LT_MEAN_REL."""
+    m0, m1 = float(frame0.mean()), float(plain.mean())
+    rel = abs(m0 - m1) / abs(m1)
+    if not (np.isfinite(rel) and rel <= LT_MEAN_REL and m1 > 0):
+        fail(f"{path}: frame mean {m0} with the kernels, {m1} with the plain "
+             f"traversal (> {LT_MEAN_REL} relative?)")
+    return dict(mean_kernel=m0, mean_plain=m1, rel_diff=rel,
+                max_abs_pixel_diff=float(np.abs(frame0 - plain).max()),
+                order="the splat's atomic sums differ in order")
+
+
+def emission_cpu_vs_card(rt, n, seed):
+    """`sample_light_emission` on the same `n` lanes of `rt`'s scene, every
+    light picked uniformly, with its tables on the CPU and on the card: the
+    same counters and `infinite`, positions and directions within DIR_ABS,
+    reported for each light type."""
+    from ignis_tpu_torch.convert import tables_from_numpy
+    from ignis_tpu_torch.light.emission import sample_light_emission
+    rng = np.random.default_rng(seed)
+    host = dict(
+        lidx=torch.from_numpy(rng.integers(0, rt.scene.num_lights, n)
+                              .astype(np.int32)),
+        seed=torch.from_numpy(rng.integers(0, 2**32, n).astype(np.int64)),
+        ctr=torch.from_numpy(rng.integers(0, 2**20, n).astype(np.int64)),
+        active=torch.from_numpy(rng.uniform(size=n) < 0.9))
+    out = {}
+    for where, tb in (("cpu", tables_from_numpy(rt.scene.tables, "cpu")),
+                      ("card", rt.tables)):
+        d = {k: v.to(rt.device if where == "card" else "cpu")
+             for k, v in host.items()}
+        em, c = sample_light_emission(rt.scene, tb, d["lidx"], d["seed"],
+                                      d["ctr"], d["active"])
+        out[where] = ({k: v.cpu() for k, v in em.items()}, c.cpu())
+    (ea, ca), (eb, cb) = out["cpu"], out["card"]
+    ltype = torch.from_numpy(np.asarray(rt.scene.tables["light_type"]))[
+        host["lidx"].long()]
+    per_type = {}
+    for t in sorted(set(ltype.tolist())):
+        m = ltype == t
+        per_type[str(t)] = dict(
+            lanes=int(m.sum()),
+            pos_max_abs_err=float((ea["pos"][m] - eb["pos"][m]).abs().max()),
+            dir_max_abs_err=float((ea["dir"][m] - eb["dir"][m]).abs().max()))
+    ctr_diff = int((ca != cb).sum())
+    inf_diff = int((ea["infinite"] != eb["infinite"]).sum())
+    worst = max(max(v["pos_max_abs_err"], v["dir_max_abs_err"])
+                for v in per_type.values())
+    if ctr_diff or inf_diff or not worst <= DIR_ABS:
+        fail(f"transport: emission CPU vs card: {ctr_diff} counters and "
+             f"{inf_diff} infinite flags differ, positions or directions by "
+             f"{worst} (> {DIR_ABS}?): {per_type}")
+    return dict(lanes=n, counters_differ=ctr_diff, infinite_differ=inf_diff,
+                by_light_type=per_type)
+
+
+def same_photons(got, want):
+    """Fails unless two photon buffers hold the same bits."""
+    for k in ("pos", "in_dir", "power", "depth", "valid", "light"):
+        a, b = got[k], want[k]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        n = int((a != b).sum())
+        if n:
+            fail(f"photonmapper: the photon buffer's {k} differs from the "
+                 f"plain traversal's in {n} values")
+    return int(got["valid"].shape[0])
+
+
+def gather_launches(rt, grid, radius, nph):
+    """Launches and device milliseconds of one `gather_photons` call on the
+    first camera hits of one tile of N_RAYS lanes (the footprint radius, the
+    lanes that gather as at depth 1), from one profiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ignis_tpu_torch.bsdf import prepare_surface
+    from ignis_tpu_torch.core.vec import FLT_MAX
+    from ignis_tpu_torch.render.integrator import (
+        _emit_camera, _surface_at, _traverse_closest,
+    )
+    from ignis_tpu_torch.render.photonmapper import gather_photons
+    idx = torch.arange(N_RAYS, dtype=torch.int32, device=rt.device)
+    sc, tb = rt.scene, rt.tables
+    with torch.no_grad():
+        _, _, org, d, tmin, _ = _emit_camera(sc, idx % rt.width,
+                                             idx // rt.width, 0, 0, 0,
+                                             rt.seed, tables=tb)
+        t, u, v, prim = _traverse_closest(sc, tb, org, d, tmin,
+                                          torch.full_like(tmin, FLT_MAX),
+                                          None)
+        hit = prim >= 0
+        surf = _surface_at(tb, prim.clamp_min(0), org, d,
+                           torch.where(hit, t, torch.ones_like(t)), u, v)
+        mat_type, spec = prepare_surface(sc, tb, surf, d, org)
+        r = torch.clamp_max(t * float(np.float32(0.017455064)), radius)
+        active = hit & ~spec & (surf["light_id"] < 0)
+
+        def call():
+            return gather_photons(sc, tb, grid, surf, mat_type, -d, r, 1,
+                                  active, nph)
+        ms = cuda_ms(call, 2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    n, busy = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            n += 1
+            busy += e.duration_ns()
+    return dict(lanes=N_RAYS, gathering_lanes=int(active.sum()),
+                launches=n, device_ms=round(busy / 1e6, 4),
+                ms=round(ms, 4))
+
+
+def photon_passes(rt, nph, radius):
+    """The photon mapper's first iteration by its parts, each timed (host
+    clock, closed by a synchronise): the photon pass, the grid, the camera
+    pass.  Returns (seconds, photons, grid)."""
+    from ignis_tpu_torch.render.photonmapper import (
+        build_photon_grid, render_ppm, trace_photons,
+    )
+    sc, tb = rt.scene, rt.tables
+    t = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        photons = trace_photons(sc, tb, nph, 0, 0, rt.seed, tile=N_RAYS)
+        torch.cuda.synchronize()
+        t["photon_pass"] = time.perf_counter() - ta
+        ta = time.perf_counter()
+        grid = build_photon_grid(sc, photons)
+        torch.cuda.synchronize()
+        t["grid"] = time.perf_counter() - ta
+        ta = time.perf_counter()
+        npix = rt.width * rt.height
+        for start in range(0, npix, N_RAYS):
+            idx = torch.arange(start, start + N_RAYS, dtype=torch.int32,
+                               device=rt.device)
+            render_ppm(sc, tb, grid, idx % rt.width, idx // rt.width, 0, 0,
+                       0, rt.seed, radius, nph)
+        torch.cuda.synchronize()
+        t["camera_pass"] = time.perf_counter() - ta
+    return {k: round(v, 4) for k, v in t.items()}, photons, grid
+
+
+def transport_phase(dev, wrappers, runs, bw, pb):
+    """The light tracer and the photon mapper through `Runtime.step` at
+    512x512, spi 1: the demo box under `lighttracer` (kernel 1), the
+    daylight room under `lighttracer` (kernel 2: the sun, the sky and 256
+    spots emit) and the demo box under `photonmapper` with 1,000,000
+    photons a step (kernel 1, closest hits only).  For each, steps and a
+    profiled step; the light tracer's frames against the plain traversal's
+    by mean (LT_MEAN_REL), the photon mapper's photon buffer and frame bit
+    for bit; the photon mapper's passes timed apart and its gather's
+    launches; light emission CPU vs card for every light type of both
+    scenes.  Adds the paths' runs to `runs` and emits the `transport`
+    line."""
+    from ignis_tpu_torch.api import Runtime
+    from ignis_tpu_torch.render import integrator
+    from ignis_tpu_torch.render.photonmapper import (
+        ppm_compute_radius, trace_photons,
+    )
+    from ignis_tpu_torch.scenes import daylight_scene
+    t0 = time.perf_counter()
+    bw_patch = dict(bw_closest=bw.bw_closest_plain, bw_any=bw.bw_any_plain)
+    pb_patch = dict(packet_bvh_closest=pb.packet_bvh_closest_plain,
+                    packet_bvh_any=pb.packet_bvh_any_plain)
+    paths = {}
+    tiles = FILM * FILM // N_RAYS
+
+    # ---- the light tracer: the demo box and the daylight room
+    room = daylight_scene()
+    room["technique"] = dict(room["technique"], type="lighttracer",
+                             max_depth=LT_DEPTH)
+    for path, scene, names, patches in (
+            ("lighttracer", demo_variant({"technique": {
+                "type": "lighttracer", "max_depth": LT_DEPTH}}),
+             ("bw_closest", "bw_any"), bw_patch),
+            ("lighttracer_room", room,
+             ("packet_bvh_closest", "packet_bvh_any"), pb_patch)):
+        ta = time.perf_counter()
+        rt = Runtime(scene, width=FILM, height=FILM, device=dev)
+        expect = {names[0]: tiles * LT_DEPTH,
+                  names[1]: tiles * (LT_DEPTH + 1)}
+        runs[path], frame0 = light_path_steps(path, rt, 2, 1, wrappers,
+                                              expect)
+        prof = profiled_step(rt, 1)
+        means = lt_against_plain(path, frame0, plain_frame(rt, 1, patches))
+        paths[path] = dict(**runs[path], **prof, **means,
+                           tris=int(rt.tables["tri_v0"].shape[0]),
+                           lights=rt.scene.num_lights,
+                           light_types=sorted({l.type
+                                               for l in rt.scene.lights}),
+                           emission=emission_cpu_vs_card(rt, N_RAYS, 41),
+                           seconds=round(time.perf_counter() - ta, 3))
+
+    # ---- the photon mapper on the demo box
+    ta = time.perf_counter()
+    rt = Runtime(demo_variant({"technique": {"type": "photonmapper",
+                                             "max_depth": PPM_DEPTH}}),
+                 width=FILM, height=FILM, device=dev)
+    tech = rt.scene.technique
+    nph = int(tech.photons)
+    ptiles = -(-nph // N_RAYS)
+    expect = {"bw_closest": ptiles * min(tech.max_light_depth, PPM_DEPTH)
+              + tiles * PPM_DEPTH, "bw_any": 0}
+    runs["photonmapper"], frame0 = light_path_steps(
+        "photonmapper", rt, 2, 1, wrappers, expect)
+    prof = profiled_step(rt, 1)
+    radius = float(np.float32(ppm_compute_radius(
+        tech.merge_radius * 2.0 * rt.scene.scene_radius(), 0)))
+    parts, photons, grid = photon_passes(rt, nph, radius)
+    gather = gather_launches(rt, grid, radius, nph)
+    with torch.no_grad(), mock.patch.multiple(integrator, **bw_patch):
+        plain_photons = trace_photons(rt.scene, rt.tables, nph, 0, 0,
+                                      rt.seed, tile=N_RAYS)
+    same_photons(photons, plain_photons)
+    plain = plain_frame(rt, 1, bw_patch)
+    differ = int((frame0.view(np.int32) != plain.view(np.int32)).sum())
+    if differ:
+        fail(f"photonmapper: the frame differs from the plain traversal's "
+             f"in {differ} values")
+    paths["photonmapper"] = dict(
+        **runs["photonmapper"], **prof, part_seconds=parts,
+        photons=nph, photon_tiles=ptiles, radius=radius,
+        valid_photon_share=float(photons["valid"].float().mean()),
+        photon_depths={str(k): int(v) for k, v in zip(*np.unique(
+            photons["depth"][photons["valid"]].cpu().numpy(),
+            return_counts=True))},
+        gather=gather,
+        gather_launches_per_camera_bounce=gather["launches"] * tiles,
+        photon_buffer_vs_plain="bit-equal", frame_vs_plain="bit-equal",
+        mean_kernel=float(frame0.mean()), mean_plain=float(plain.mean()),
+        seconds=round(time.perf_counter() - ta, 3))
+    emit("transport", t0, paths=paths,
+         kernel_launches_per_step={
+             p: {k: runs[p]["launches"][k] / (runs[p]["steps"] + 1)
+                 for k in PATH_KERNELS[p]}
+             for p in ("lighttracer", "lighttracer_room", "photonmapper")})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs the port on a GPU "
@@ -1973,6 +2288,9 @@ def main():
     # ---- 15. techniques: the single-intersection techniques, samplers,
     # cameras, the per-sample driver and the Runtime tail
     techniques_phase(dev, wrappers, runs, bw, pb)
+
+    # ---- 16. transport: the light tracer and the photon mapper
+    transport_phase(dev, wrappers, runs, bw, pb)
 
     # ---- the kernels line: launches are those of the main paths' runs, in
     # all and for each path that has to launch the kernel

@@ -1,5 +1,4 @@
-"""Runtime API.  Counterpart of ignis_tpu/api.py for every technique but the
-light tracer and the photon mapper.
+"""Runtime API.  Counterpart of ignis_tpu/api.py.
 
 `Runtime` owns the compiled scene, builds the acceleration tables, drives
 progressive accumulation (`step()`) and exposes ray-list tracing (`trace()`),
@@ -10,7 +9,10 @@ divide by `currentSampleCount()` (or call `currentFrame()`).
 `step()` runs the regenerating wavefront (`render_wavefront`) where it can;
 the single-intersection techniques and scenes whose entities differ in camera
 and bounce visibility go through the per-sample driver instead: for each
-sample, `trace_wave` over tiles of `tile_size` pixels.
+sample, `trace_wave` over tiles of `tile_size` pixels.  The light tracer
+(`render/lighttracer.py`) traces `npix * spi` light paths a step, and the
+photon mapper (`render/photonmapper.py`) one photon pass, its grid and one
+camera pass a sample, each in tiles of `tile_size` lanes.
 
     rt = Runtime(scene_dict_or_path, width=512, height=512)   # on the card
     rt.step(spi=4)
@@ -37,6 +39,10 @@ from ignis_tpu_torch.scene.compile import (
 from ignis_tpu_torch.utils.stats import Statistics
 
 _DEFAULT_TILE = 1 << 16
+# the techniques that trace paths from the lights, by every name the
+# reference takes
+LIGHT_TRACERS = ("lighttracer", "lt")
+PHOTON_MAPPERS = ("photonmapper", "ppm", "sppm")
 # Soups of this many triangles and more get packet-BVH tables and kernel,
 # smaller ones Baldwin-Weber tables and kernel.  The value is the reference
 # package's, kept so both packages build the same tables.
@@ -293,7 +299,10 @@ class Runtime:
     def _step_impl(self, spi=1):
         w = self.scene.width
         npix = w * self.scene.height
-        if self._wavefront_ok:
+        if self.scene.technique.type in LIGHT_TRACERS + PHOTON_MAPPERS:
+            with torch.no_grad():
+                self._step_light_paths(spi)
+        elif self._wavefront_ok:
             total = npix * spi
             capacity = int(min(self.tile_size, max(8192, 1 << int(np.ceil(
                 np.log2(max(total, 1)))))))
@@ -305,23 +314,53 @@ class Runtime:
             self._dev_stats += wstats
             self._dev_stats_capacity = capacity
         else:
-            # the per-sample driver: every tile is `tile` lanes wide, the
-            # last one padded with copies of the film's last pixel, of which
-            # only the first `count` rows are added
-            tile = min(self.tile_size, npix)
-            for sample in range(spi):
-                for start in range(0, npix, tile):
-                    count = min(tile, npix - start)
-                    idx = torch.clamp_max(torch.arange(
-                        start, start + tile, dtype=torch.int32,
-                        device=self.device), npix - 1)
-                    with torch.no_grad():
-                        color = trace_wave(self.scene, self.tables, idx % w,
-                                           idx // w, sample, self.iteration,
-                                           self.frame, self.seed)
-                    self._accum[start:start + count] += color[:count]
+            with torch.no_grad():
+                self._per_sample(spi, lambda x, y, sample: trace_wave(
+                    self.scene, self.tables, x, y, sample, self.iteration,
+                    self.frame, self.seed))
         self._samples += spi
         self.iteration += 1
+
+    def _per_sample(self, spi, render):
+        """The per-sample driver: for each sample, `render(x, y, sample)` on
+        tiles of `tile_size` pixels.  Every tile is that many lanes wide, the
+        last one padded with copies of the film's last pixel, of which only
+        the first `count` rows are added."""
+        w = self.scene.width
+        npix = w * self.scene.height
+        tile = min(self.tile_size, npix)
+        for sample in range(spi):
+            for start in range(0, npix, tile):
+                count = min(tile, npix - start)
+                idx = torch.clamp_max(torch.arange(
+                    start, start + tile, dtype=torch.int32,
+                    device=self.device), npix - 1)
+                color = render(idx % w, idx // w, sample)
+                self._accum[start:start + count] += color[:count]
+
+    def _step_light_paths(self, spi):
+        """A step of the light tracer or the photon mapper."""
+        from ignis_tpu_torch.render.lighttracer import render_lighttracer
+        from ignis_tpu_torch.render.photonmapper import (
+            build_photon_grid, ppm_compute_radius, render_ppm, trace_photons,
+        )
+        scene = self.scene
+        npix = scene.width * scene.height
+        if scene.technique.type in LIGHT_TRACERS:
+            self._accum += render_lighttracer(
+                scene, self.tables, npix * spi, self.iteration, self.frame,
+                self.seed, tile=self.tile_size)
+            return
+        nph = int(scene.technique.photons)
+        photons = trace_photons(scene, self.tables, nph, self.iteration,
+                                self.frame, self.seed, tile=self.tile_size)
+        grid = build_photon_grid(scene, photons)
+        radius = float(np.float32(ppm_compute_radius(
+            scene.technique.merge_radius * 2.0 * scene.scene_radius(),
+            self.iteration)))
+        self._per_sample(spi, lambda x, y, sample: render_ppm(
+            scene, self.tables, grid, x, y, sample, self.iteration,
+            self.frame, self.seed, radius, nph))
 
     # -------------------------------------------------------- checkpointing
     def saveCheckpoint(self, path):

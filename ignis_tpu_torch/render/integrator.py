@@ -10,7 +10,10 @@ bit-identical and paths replay.
 Two entry points share the same bounce core:
 
 * `trace_wave`: one ray per lane traced to completion (camera rays from
-  pixel coordinates, or a ray list given as `org` / `direction`).
+  pixel coordinates, or a ray list given as `org` / `direction`).  Under
+  the light tracer and the photon mapper, whose steps run in
+  `render/lighttracer.py` and `render/photonmapper.py`, it traces camera
+  paths with this bounce, as the JAX package's does (`Runtime.trace`).
 * `render_wavefront`: the production camera path.  Dead lanes are refilled
   with fresh (pixel, sample) work every bounce; radiance is added into a
   per-work-item slot buffer.
@@ -68,9 +71,7 @@ from ignis_tpu_torch.ops.spheres import sphere_any, sphere_closest
 from ignis_tpu_torch.ops.tlas import tlas_any, tlas_closest
 from ignis_tpu_torch.render.camera import generate_rays, pixel_coord_from_xy
 from ignis_tpu_torch.render.sampler import sample_pixel
-from ignis_tpu_torch.scene.compile import (
-    LIGHT_AREA_PLANE, REFUSED_TECHNIQUES,
-)
+from ignis_tpu_torch.scene.compile import LIGHT_AREA_PLANE
 
 OFFSET = float(np.float32(0.001))  # ray offset
 
@@ -349,9 +350,6 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
     bounces.
     """
     tech = scene.technique
-    if tech.type in REFUSED_TECHNIQUES:
-        raise NotImplementedError(
-            f"technique '{tech.type}' is not ported to ignis_tpu_torch yet")
     is_vol = tech.type == "volpath"
     num_lights = scene.num_lights
     inf_ids = [i for i, l in enumerate(scene.lights)

@@ -7,9 +7,9 @@ entities keeps one local copy plus transform records, `CompiledScene.instanced`)
 analytic sphere records (`sph_rows`), array-of-struct material/light parameter
 tables, and a static `CompiledScene` the integrator specialises on.
 
-`check_slice` rejects what compiles but the integrator does not cover yet
-(the light tracer and the photon mapper), with `NotImplementedError`.
-Nothing is silently skipped or approximated.
+`check_slice` rejects what compiles but the integrator does not cover (a
+light selector, BSDF type or normal modifier kind outside the ported set),
+with `NotImplementedError`.  Nothing is silently skipped or approximated.
 """
 
 from __future__ import annotations
@@ -1494,8 +1494,6 @@ _SLICE_BSDFS = (BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_PHONG,
 # normal (and tangent) set, 4 a PExpr normal
 _SLICE_NMODS = (0, 1, 2, 3, 4)
 _SLICE_SELECTORS = ("uniform", "simple", "cdf", "hierarchy")
-# the light tracer and the photon mapper, by every name the reference takes
-REFUSED_TECHNIQUES = ("lighttracer", "lt", "photonmapper", "ppm", "sppm")
 
 
 def check_slice(cs: CompiledScene) -> None:
@@ -1505,8 +1503,6 @@ def check_slice(cs: CompiledScene) -> None:
         raise NotImplementedError(
             f"{what} is not ported to ignis_tpu_torch yet")
 
-    if cs.technique.type in REFUSED_TECHNIQUES:
-        no(f"technique '{cs.technique.type}'")
     if cs.technique.light_selector not in _SLICE_SELECTORS:
         no(f"light selector '{cs.technique.light_selector}'")
     for name, t, tb in zip(cs.material_names, cs.bsdf_types,

@@ -153,8 +153,7 @@ def load_scene_string(text: str, base_dir: str | os.PathLike = ".") -> Scene:
 
 def load_scene_file(path: str | os.PathLike) -> Scene:
     path = Path(path)
-    text = path.read_text()
     if path.suffix.lower() in (".gltf", ".glb"):
-        raise NotImplementedError(
-            "glTF scene import is not ported to ignis_tpu_torch yet")
-    return load_scene_string(text, path.parent)
+        from ignis_tpu_torch.scene.gltf import load_gltf_scene
+        return load_gltf_scene(path)
+    return load_scene_string(path.read_text(), path.parent)

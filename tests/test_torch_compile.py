@@ -424,13 +424,6 @@ def _flat_bsdf(bsdf):
     return s
 
 
-OUT_OF_SLICE = {
-    "technique lighttracer": lambda: _flat_with(
-        technique={"type": "lighttracer"}),
-    "technique photonmapper": lambda: _flat_with(
-        technique={"type": "photonmapper"}),
-}
-
 def _flat_material(*bsdfs):
     """The flat scene under a white sky, its ground shaded by the last of
     `bsdfs` (named "ground"); the others are what it refers to."""
@@ -449,7 +442,21 @@ def _with_checker(s):
 # compile, build its tables and render instead.  Each case's predicate
 # (Runtime, index of the "ground" material) says what the compiled scene
 # must hold.
+# a point light between the camera and the flat scene's plane
+_FLAT_POINT = [{"type": "point", "name": "p", "position": [0, 0, -0.5]}]
+
 MOVED_INTO_SLICE = {
+    # the light tracer and the photon mapper, at the flat scene's depth of
+    # 2 (both run every one of `max_depth` bounces, 64 by default) and with
+    # a small photon count
+    "technique lighttracer": (lambda: _flat_with(
+        technique={"type": "lighttracer", "max_depth": 2},
+        lights=_FLAT_POINT),
+        lambda rt, g: rt.scene.technique.type == "lighttracer"),
+    "technique photonmapper": (lambda: _flat_with(
+        technique={"type": "photonmapper", "max_depth": 2,
+                   "photons": 10000}, lights=_FLAT_POINT),
+        lambda rt, g: rt.scene.technique.photons == 10000),
     # the single-intersection techniques, the samplers and cameras beside
     # the perspective one, and the per-sample driver
     "technique ao": (lambda: _flat_with(technique={"type": "ao"}),
@@ -576,13 +583,6 @@ MOVED_INTO_SLICE = {
 }
 
 
-@pytest.mark.parametrize("what", sorted(OUT_OF_SLICE))
-def test_out_of_slice_scene_raises(what):
-    scene = OUT_OF_SLICE[what]()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tapi.Runtime(scene, device="cpu")
-
-
 @pytest.mark.parametrize("what", sorted(MOVED_INTO_SLICE))
 def test_moved_into_slice_scene_renders(what):
     scene_fn, holds = MOVED_INTO_SLICE[what]
@@ -615,8 +615,10 @@ def test_shadow_only_flags_stay_in_the_slice():
 
 
 def test_gltf_and_exr_raise():
-    """glTF scenes raise; EXR images are read (none / ZIPS / ZIP) and any
-    other compression raises, naming it."""
+    """An empty glTF file loads as in the JAX package (a scene with only
+    the default environment); EXR images are read (none / ZIPS / ZIP) and
+    any other compression raises, naming it."""
+    from ignis_tpu.scene.parser import load_scene_file as j_load_scene_file
     from ignis_tpu_torch.scene.parser import load_scene_file
     from ignis_tpu_torch.texture.loader import load_image_rgb
     from test_torch_textures import _zips_exr
@@ -624,8 +626,9 @@ def test_gltf_and_exr_raise():
     with tempfile.TemporaryDirectory() as d:
         p = os.path.join(d, "a.gltf")
         open(p, "w").write("{}")
-        with pytest.raises(NotImplementedError):
-            load_scene_file(p)
+        got, want = load_scene_file(p), j_load_scene_file(p)
+        assert vars(got) == vars(want)
+        assert list(got.lights) == ["__env"]
         p = os.path.join(d, "a.exr")
         _zips_exr(p, np.zeros((2, 2, 3), np.float32), comp=4)
         with pytest.raises(NotImplementedError, match="PIZ"):
