@@ -63,18 +63,35 @@ held to the plain traversal's within 1e-5 (the splat's atomic sums differ in
 order); the demo box under the photon mapper with 1,000,000 photons a step,
 its photon buffer and frame held bit for bit to the plain traversal's, its
 photon pass, grid and camera pass timed apart and one gather profiled; light
-emission of every light type of both scenes CPU vs card.  Every phase prints one
-JSON line with its seconds.  Any failed phase ends the run with a non-zero exit code; nothing
-falls back to the CPU.  The last line of the output is
+emission of every light type of both scenes CPU vs card.  Last the frontends
+(`frontends`), each a main path with its counts zeroed just before it: igcli
+on the demo box with its default flags, which walks the per-lane stack BVH
+(`ops.bvh`) and must launch no kernel (its host syncs counted, its mean
+within 2 % of `--no-bvh`'s; the walk card vs CPU on 65,536 rays), igcli with
+`--no-bvh` (kernel 1, the frame bit-equal to the plain traversal's) and on
+the daylight room (kernel 2), igtrace on 65,536 rays from a file (equal to
+`Runtime.trace`), igview's `--fly` over three poses (each EXR equal to a
+`Runtime`'s frame after `setCameraOrientationParameter`), the explicit work
+list (within rtol 2e-4 of the arithmetic one), and a 2^18-lane render over two
+gloo ranks spawned on the card and over NCCL at world size 1 (bit-equal to
+one process; the sharded train step within 1e-6).  The run's asset cache is a
+fresh directory under `build/ignis_tpu_torch/`, so the `scenes` phase times
+`big`'s first load (tables built) and its second (read back).  Every phase
+prints one JSON line with its seconds.  Any failed phase ends the run with a
+non-zero exit code; nothing falls back to the CPU.  The last line of the output is
 `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -811,6 +828,18 @@ PATH_KERNELS = {
     "lighttracer": ("bw_closest", "bw_any"),
     "lighttracer_room": ("packet_bvh_closest", "packet_bvh_any"),
     "photonmapper": ("bw_closest",),
+    # the frontends phase: igcli's default (`use_bvh=True`) walks the
+    # binary tree of `ops.bvh` in tensor code and launches no kernel;
+    # `--no-bvh` reaches kernel 1; the room's packet rows come before its
+    # `bvh_*` tables; igtrace and the sharded ranks trace lanes through
+    # `trace_wave`
+    "igcli": (),
+    "igcli_nobvh": ("bw_closest", "bw_any"),
+    "igcli_room": ("packet_bvh_closest", "packet_bvh_any"),
+    "igtrace": ("bw_closest", "bw_any"),
+    "igview": ("bw_closest", "bw_any"),
+    "work_list": ("bw_closest", "bw_any"),
+    "sharded": ("bw_closest", "bw_any"),
 }
 
 
@@ -2028,14 +2057,565 @@ def transport_phase(dev, wrappers, runs, bw, pb):
              for p in ("lighttracer", "lighttracer_room", "photonmapper")})
 
 
+# ------------------------------------------------------------ the frontends
+FRONT_SPP = 4             # igcli's samples a pixel on the demo box: one step
+ROOM_PLAIN_FILM = 128     # the room's kernel-vs-plain igcli frames
+FLY_POSES = "0,0,3.85;0.4,0.1,3.5,-0.1,0,-1;-0.3,-0.2,3.2,0.1,0.05,-1"
+SHARDED_LANES = 1 << 18
+RANK_TIMEOUT = 300        # seconds: a rank's rendezvous, collectives and join
+STACK_T_REL = 1e-5        # the stack walk's t, card vs CPU
+
+
+def cache_listing():
+    """Entries of the run's asset cache by kind, and their bytes."""
+    d = os.environ["IGNIS_TPU_TORCH_CACHE"]
+    out = {}
+    for name in os.listdir(d):
+        kind = name.split("-")[0]
+        n, b = out.get(kind, (0, 0))
+        out[kind] = (n + 1, b + os.path.getsize(os.path.join(d, name)))
+    return {k: dict(entries=n, bytes=b) for k, (n, b) in sorted(out.items())}
+
+
+@contextlib.contextmanager
+def recorded_runtimes():
+    """Every `api.Runtime` the CLIs build while in the context (they look it
+    up at call time), in a list."""
+    from ignis_tpu_torch import api
+    made = []
+
+    class Recording(api.Runtime):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    with mock.patch.object(api, "Runtime", Recording):
+        yield made
+
+
+def drive_cli(path, main, argv, wrappers):
+    """One run of a CLI's `main(argv)`, a main path: counts (kernel launches
+    and the stack walk's calls and host syncs) to 0 just before, read just
+    after.  Returns (its runtime, seconds, stdout, launches, stack)."""
+    from ignis_tpu_torch.ops import bvh
+    buf = io.StringIO()
+    with recorded_runtimes() as made:
+        reset_counts(wrappers)
+        for f in (bvh.bvh_closest, bvh.bvh_any):
+            f.calls = f.host_syncs = 0
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - ta
+    launches = {f.__name__: f.launches for f in wrappers}
+    stack = {f.__name__: dict(calls=f.calls, host_syncs=f.host_syncs)
+             for f in (bvh.bvh_closest, bvh.bvh_any)}
+    if code != 0:
+        fail(f"{path}: exit code {code}")
+    return (made[0] if made else None), secs, buf.getvalue(), launches, stack
+
+
+def wave_launches(path, rt, launches, names, stack=None):
+    """The launches of `names` must each equal the wave iterations of `rt`
+    (and, for `stack`, the stack walk's calls), every other count 0, and a
+    wave must be N_RAYS wide.  Returns the wave iterations."""
+    ds = rt._dev_stats.cpu().numpy()
+    iters = int(ds[0] + ds[2])
+    want = {k: (iters if k in names else 0) for k in launches}
+    if iters <= 0 or launches != want:
+        fail(f"{path}: launches {launches}, want {want} ({iters} wave "
+             "iterations)")
+    if stack is not None and any(s["calls"] != iters
+                                 for s in stack.values()):
+        fail(f"{path}: stack walk calls {stack} vs {iters} wave iterations")
+    if rt._dev_stats_capacity != N_RAYS:
+        fail(f"{path}: a wave holds {rt._dev_stats_capacity} rays, not "
+             f"{N_RAYS}")
+    return iters
+
+
+def frame_of(path, exr, film=None):
+    """The EXR a frontend wrote: finite, (film, film, 3) (FILM by default)."""
+    from ignis_tpu_torch.utils.exr import read_exr
+    film = film or FILM
+    img = read_exr(exr)
+    if img.shape != (film, film, 3) or not np.isfinite(img).all():
+        fail(f"{path}: frame {img.shape} is not finite ({film}, {film}, 3)")
+    return img
+
+
+def quiet(main, argv):
+    """`main(argv)` with its printing captured."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+@contextlib.contextmanager
+def tonemap_devices():
+    """The devices of the frames `render.tonemap.tonemap` is given while in
+    the context (the CLIs look it up at call time), in a list."""
+    from ignis_tpu_torch.render import tonemap as tm
+    seen, real = [], tm.tonemap
+
+    def recording(image, *a, **k):
+        seen.append(str(torch.as_tensor(image).device))
+        return real(image, *a, **k)
+
+    with mock.patch.object(tm, "tonemap", recording):
+        yield seen
+
+
+def check_tonemapped(path, devices, got, frame, dev):
+    """A CLI's tonemapped EXR: tonemapped once, on the card, and equal to
+    the ACES tonemap of its own frame on the card."""
+    from ignis_tpu_torch.render.tonemap import METHODS, tonemap
+    if len(devices) != 1 or not devices[0].startswith("cuda"):
+        fail(f"{path}: tonemapped on {devices}, not once on the card")
+    want = tonemap(torch.as_tensor(frame, device=dev),
+                   method=METHODS["aces"]).cpu().numpy()
+    if not np.array_equal(got, want):
+        fail(f"{path}: the tonemapped EXR differs from the frame's tonemap")
+
+
+def samples_line(text):
+    return next((l for l in text.splitlines()
+                 if l.startswith("Samples per second")), None)
+
+
+def same_frame(path, got, want):
+    if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+        fail(f"{path}: the frame with the kernels differs from the plain "
+             f"traversal's on {int((got != want).any(-1).sum())} pixels")
+
+
+def stack_cpu_vs_card(rt, dev):
+    """`bvh_closest` / `bvh_any` on the card and on the CPU over the same
+    N_RAYS camera rays and N_RAYS random rays of `rt`'s `bvh_*` tables: ids
+    equal but for exact t ties, t within STACK_T_REL, occlusion equal; the
+    card's milliseconds and host syncs a call."""
+    from ignis_tpu_torch.ops import bvh
+    cpu = {k: v.cpu() for k, v in rt.tables.items()
+           if k.startswith("bvh_")}
+    side = int(round(N_RAYS ** 0.5))
+    out = {}
+    for name, rays in (("camera", camera_rays(rt, side, dev)),
+                       ("random", random_rays(rt, N_RAYS, 41, dev))):
+        org, d, tmin, tmax = rays
+        got = bvh.bvh_closest(rt.tables, org, d, tmin, tmax)
+        want = bvh.bvh_closest(cpu, *(a.cpu() for a in rays))
+        gt, gi = got[0].cpu().numpy(), got[3].cpu().numpy()
+        wt, wi = want[0].numpy(), want[3].numpy()
+        differ = gi != wi
+        tie = differ & (gi >= 0) & (wi >= 0) & (gt == wt)
+        hit = (wi >= 0) & ~differ
+        err = float(np.max(np.abs(gt[hit] - wt[hit])
+                           / np.maximum(np.abs(wt[hit]), 1e-30),
+                           initial=0.0))
+        if (differ & ~tie).any() or err > STACK_T_REL:
+            fail(f"stack walk {name} rays: card vs CPU ids differ on "
+                 f"{int((differ & ~tie).sum())} rays, t rel err {err}")
+        occ = bvh.bvh_any(rt.tables, org, d, tmin, torch.full_like(tmax, 2.0))
+        occ_cpu = bvh.bvh_any(cpu, org.cpu(), d.cpu(), tmin.cpu(),
+                              torch.full((org.shape[0],), 2.0))
+        if not torch.equal(occ.cpu(), occ_cpu):
+            fail(f"stack walk {name} rays: occlusion card vs CPU differs")
+        syncs = bvh.bvh_closest.host_syncs
+        ms = cuda_ms(lambda: bvh.bvh_closest(rt.tables, org, d, tmin, tmax),
+                     3)
+        syncs_per_call = (bvh.bvh_closest.host_syncs - syncs) / 4
+        any_ms = cuda_ms(lambda: bvh.bvh_any(rt.tables, org, d, tmin, tmax),
+                         3)
+        out[name] = dict(rays=int(org.shape[0]), hits=int(hit.sum()),
+                         ties=int(tie.sum()), t_rel_err=err,
+                         closest_ms=round(ms, 3), any_ms=round(any_ms, 3),
+                         closest_host_syncs_per_call=syncs_per_call,
+                         occluded=int(occ.sum()))
+    return out
+
+
+def _sharded_rank(rank, world, store, out, lanes, film, device):
+    """One rank of the sharded path (a spawned process): gloo over a
+    FileStore, every rank on `device`; the demo box's render of `lanes`
+    lanes over a film x film image and a train step, saved to `out`."""
+    import torch.distributed as dist
+
+    from ignis_tpu_torch.api import Runtime
+    from ignis_tpu_torch.ops import bw_intersect as bw
+    from ignis_tpu_torch.parallel import sharding
+    from ignis_tpu_torch.scenes import demo_scene
+    dev = torch.device(device)
+    sharding.init_distributed(f"file://{store}", world, rank, backend="gloo",
+                              timeout=RANK_TIMEOUT)
+    mesh = sharding.make_mesh(world)
+    rt = Runtime(demo_scene(), width=film, height=film, device=dev)
+    sharding.replicate(mesh, rt.tables)
+    x, y = lanes_over_film(lanes, film, dev)
+    fn = sharding.sharded_render_fn(rt.scene, mesh)
+    fn(rt.tables, x, y, 0, 0, 0, 0)                   # warm-up
+    reset_counts((bw.bw_closest, bw.bw_any))
+    torch.cuda.synchronize()
+    ta = time.perf_counter()
+    rad = fn(rt.tables, x, y, 0, 0, 0, 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - ta
+    launches = [bw.bw_closest.launches, bw.bw_any.launches]
+    step = sharding.sharded_train_step(rt.scene, mesh, ("mat_colors",),
+                                       lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    ta = time.perf_counter()
+    loss, new = step(rt.tables, x, y, 0, 0, 0, 0, rad * 0.8)
+    torch.cuda.synchronize()
+    np.savez(out, radiance=rad.cpu().numpy(), loss=loss.cpu().numpy(),
+             mat_colors=new["mat_colors"].detach().cpu().numpy(),
+             launches=np.asarray(launches), seconds=secs,
+             train_seconds=time.perf_counter() - ta)
+    dist.destroy_process_group()
+
+
+def sharded_path(dev, rt, wrappers, d, bw):
+    """The demo box's render of SHARDED_LANES lanes over two gloo ranks (two
+    processes on cuda:0) and over NCCL at world size 1 (this process): each
+    bit-equal to one process's `trace_wave` through the plain Baldwin-Weber
+    traversal (as is one process's render through kernel 1, the one timed);
+    the train step's loss and parameters within 1e-6 of one process's
+    `train_step` through the plain traversal."""
+    import multiprocessing as mp
+    import torch.distributed as dist
+
+    from ignis_tpu_torch.parallel import sharding
+    from ignis_tpu_torch.render.integrator import trace_wave
+    x, y = lanes_over_film(SHARDED_LANES, FILM, dev)
+    with torch.no_grad():
+        trace_wave(rt.scene, rt.tables, x, y, 0, 0, 0, 0)     # warm-up
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        one = trace_wave(rt.scene, rt.tables, x, y, 0, 0, 0, 0)
+        torch.cuda.synchronize()
+        one_secs = time.perf_counter() - ta
+        with bw_plain(bw):
+            want = trace_wave(rt.scene, rt.tables, x, y, 0, 0, 0, 0)
+    same_bits("sharded one process", one, want)
+    del one
+    d = tempfile.mkdtemp(prefix="sharded_", dir=d)   # fresh stores
+    ctx = mp.get_context("spawn")
+    ta = time.perf_counter()
+    procs = [ctx.Process(target=_sharded_rank, args=(
+        r, 2, os.path.join(d, "gloo_store"), os.path.join(d, f"rank{r}.npz"),
+        SHARDED_LANES, FILM, str(dev))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(RANK_TIMEOUT + 60)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    if hung or any(p.exitcode != 0 for p in procs):
+        fail(f"sharded: ranks ended with {[p.exitcode for p in procs]} "
+             f"({len(hung)} killed at the timeout)")
+    spawn_secs = time.perf_counter() - ta
+    ranks = [dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in range(2)]
+    want_np = want.cpu().numpy()
+    for r in ranks:
+        if not np.array_equal(r["radiance"].view(np.int32),
+                              want_np.view(np.int32)):
+            fail("sharded: the 2-rank gloo render differs from one "
+                 "process's plain trace_wave")
+    with bw_plain(bw):
+        loss, new = sharding.train_step(rt.scene, rt.tables, x, y, 0, 0, 0,
+                                        0, want * 0.8,
+                                        param_keys=("mat_colors",),
+                                        lr=TRAIN_LR)
+    new = new["mat_colors"].detach().cpu().numpy()
+    for r in ranks:
+        if (abs(float(r["loss"]) - float(loss)) > 1e-6 * max(abs(float(loss)),
+                                                             1.0)
+                or np.abs(r["mat_colors"] - new).max() > 1e-6):
+            fail(f"sharded: train step loss {float(r['loss'])} / params vs "
+                 f"one process {float(loss)}")
+    # NCCL at world size 1, in this process: counts to 0 just before
+    sharding.init_distributed(f"file://{os.path.join(d, 'world1_store')}",
+                              1, 0, backend="nccl", timeout=RANK_TIMEOUT)
+    try:
+        mesh = sharding.make_mesh(1)
+        fn = sharding.sharded_render_fn(rt.scene, mesh)
+        fn(rt.tables, x, y, 0, 0, 0, 0)                   # warm-up
+        reset_counts(wrappers)
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        got = fn(rt.tables, x, y, 0, 0, 0, 0)
+        torch.cuda.synchronize()
+        nccl_secs = time.perf_counter() - ta
+        launches = {f.__name__: f.launches for f in wrappers}
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    same_bits("sharded nccl", got, want)
+    for r in ranks:
+        launches["bw_closest"] += int(r["launches"][0])
+        launches["bw_any"] += int(r["launches"][1])
+    return dict(
+        lanes=SHARDED_LANES, launches=launches, backend_world1=backend,
+        one_process_seconds=round(one_secs, 4),
+        gloo_2rank_render_seconds=[round(float(r["seconds"]), 4)
+                                   for r in ranks],
+        gloo_2rank_train_seconds=[round(float(r["train_seconds"]), 4)
+                                  for r in ranks],
+        gloo_2rank_launches=[r["launches"].tolist() for r in ranks],
+        gloo_spawn_seconds=round(spawn_secs, 3),
+        nccl_world1_seconds=round(nccl_secs, 4), loss=float(loss))
+
+
+def frontends_phase(dev, wrappers, runs, rt_demo, bw, pb):
+    """The port's frontends at 512x512, capacity 65,536, each a main path:
+    igcli on the demo box with default flags (the stack walk, no kernel),
+    with `--no-bvh` (kernel 1) and on the daylight room (kernel 2); igtrace
+    on 65,536 rays; igview's `--fly` over three poses; the explicit work list
+    (`render_wavefront(work_mode="tables")`); the sharded render and train
+    step.  Adds the paths' runs to `runs` and emits the `frontends` line."""
+    from ignis_tpu_torch.api import Runtime
+    from ignis_tpu_torch.cli import igcli, igtrace, igview
+    from ignis_tpu_torch.render import integrator
+    from ignis_tpu_torch.render.integrator import render_wavefront
+    from ignis_tpu_torch.scenes import daylight_scene, demo_scene
+    t0 = time.perf_counter()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "frontends")
+    os.makedirs(d, exist_ok=True)
+    demo_json, room_json = (os.path.join(d, n) for n in ("demo.json",
+                                                        "room.json"))
+    for p, s in ((demo_json, demo_scene()), (room_json, daylight_scene())):
+        with open(p, "w") as f:
+            json.dump(s, f)
+    film = ["--width", str(FILM), "--height", str(FILM)]
+    spp = ["--spp", str(FRONT_SPP), "--spi", str(FRONT_SPP)]
+    exr = lambda n: os.path.join(d, n + ".exr")
+    paths, seconds = {}, {}
+
+    # ---- igcli, default flags: use_bvh=True, the stack walk, no kernel
+    ta = time.perf_counter()
+    rt, secs, text, launches, stack = drive_cli(
+        "igcli", igcli.main, [demo_json, *film, *spp, "-o", exr("igcli")],
+        wrappers)
+    iters = wave_launches("igcli", rt, launches, (), stack)
+    img = frame_of("igcli", exr("igcli"))
+    syncs = sum(s["host_syncs"] for s in stack.values())
+    runs["igcli"] = dict(launches=launches)
+    paths["igcli"] = dict(
+        seconds=round(secs, 3), samples=samples_line(text),
+        launches=launches, wave_iterations=iters, stack_walk=stack,
+        stack_host_syncs_per_step=syncs,
+        stack_host_syncs_per_wave_iteration=round(syncs / iters, 2),
+        mean=float(img.mean()),
+        stack_cpu_vs_card=stack_cpu_vs_card(rt, dev),
+        profiled_step=profiled_step(rt, FRONT_SPP))
+    del rt
+    seconds["igcli"] = time.perf_counter() - ta
+
+    # ---- igcli --no-bvh: kernel 1, bit-equal to the plain traversal
+    ta = time.perf_counter()
+    rt, secs, text, launches, _ = drive_cli(
+        "igcli_nobvh", igcli.main,
+        [demo_json, *film, *spp, "--no-bvh", "-o", exr("igcli_nobvh")],
+        wrappers)
+    iters = wave_launches("igcli_nobvh", rt, launches,
+                          PATH_KERNELS["igcli_nobvh"])
+    prof = profiled_step(rt, FRONT_SPP)
+    del rt
+    img_k = frame_of("igcli_nobvh", exr("igcli_nobvh"))
+    with tonemap_devices() as tm_devs, mock.patch.multiple(
+            integrator, bw_closest=bw.bw_closest_plain,
+            bw_any=bw.bw_any_plain):
+        quiet(igcli.main, [demo_json, *film, *spp, "--no-bvh", "--tonemap",
+                           "aces", "-o", exr("igcli_nobvh_plain")])
+    img_p = frame_of("igcli_nobvh", exr("igcli_nobvh_plain"))
+    same_frame("igcli_nobvh", img_k, img_p)
+    check_tonemapped("igcli --tonemap", tm_devs,
+                     frame_of("igcli --tonemap",
+                              exr("igcli_nobvh_plain_tonemapped")),
+                     img_p, dev)
+    rel = abs(float(img.mean()) - float(img_k.mean())) / float(img_k.mean())
+    if rel > MEAN_REL:
+        fail(f"igcli: the stack walk's mean {img.mean()} vs kernel 1's "
+             f"{img_k.mean()}")
+    runs["igcli_nobvh"] = dict(launches=launches)
+    paths["igcli_nobvh"] = dict(
+        seconds=round(secs, 3), samples=samples_line(text),
+        launches=launches, wave_iterations=iters, mean=float(img_k.mean()),
+        stack_vs_kernel_mean_rel=rel, frame_bit_equal_to_plain=True,
+        tonemap_devices=tm_devs, profiled_step=prof)
+    seconds["igcli_nobvh"] = time.perf_counter() - ta
+
+    # ---- igcli on the daylight room: bvh_* and pb_rows, kernel 2 first
+    ta = time.perf_counter()
+    rt, secs, text, launches, stack = drive_cli(
+        "igcli_room", igcli.main,
+        [room_json, *film, "--spp", "1", "-o", exr("igcli_room")], wrappers)
+    iters = wave_launches("igcli_room", rt, launches,
+                          PATH_KERNELS["igcli_room"])
+    if "bvh_node_min" not in rt.tables or any(s["calls"]
+                                              for s in stack.values()):
+        fail("igcli_room: the room must hold bvh_* tables and never walk "
+             "them (the packet rows come first)")
+    del rt
+    img = frame_of("igcli_room", exr("igcli_room"))
+    small = ["--width", str(ROOM_PLAIN_FILM), "--height",
+             str(ROOM_PLAIN_FILM), "--spp", "1"]
+    quiet(igcli.main, [room_json, *small, "-o", exr("room_small")])
+    with mock.patch.multiple(integrator,
+                             packet_bvh_closest=pb.packet_bvh_closest_plain,
+                             packet_bvh_any=pb.packet_bvh_any_plain):
+        quiet(igcli.main, [room_json, *small, "-o", exr("room_small_plain")])
+    same_frame("igcli_room",
+               frame_of("igcli_room", exr("room_small"), ROOM_PLAIN_FILM),
+               frame_of("igcli_room", exr("room_small_plain"),
+                        ROOM_PLAIN_FILM))
+    runs["igcli_room"] = dict(launches=launches)
+    paths["igcli_room"] = dict(
+        seconds=round(secs, 3), samples=samples_line(text),
+        launches=launches, wave_iterations=iters, mean=float(img.mean()),
+        plain_film=[ROOM_PLAIN_FILM] * 2, frame_bit_equal_to_plain=True)
+    seconds["igcli_room"] = time.perf_counter() - ta
+
+    # ---- igtrace: N_RAYS rays from a file, against Runtime.trace
+    ta = time.perf_counter()
+    org, dirs, _, _ = random_rays(rt_demo, N_RAYS, 43, "cpu")
+    ray_file, out_file = (os.path.join(d, n) for n in ("rays.txt",
+                                                        "traced.txt"))
+    np.savetxt(ray_file, np.concatenate([org.numpy(), dirs.numpy()], 1),
+               fmt="%.9g")
+    rt, secs, _, launches, _ = drive_cli(
+        "igtrace", igtrace.main, [demo_json, "-i", ray_file, "-o", out_file],
+        wrappers)
+    want = {k: (launches[k] if k in PATH_KERNELS["igtrace"] else 0)
+            for k in launches}
+    if launches != want or min(launches[k]
+                               for k in PATH_KERNELS["igtrace"]) <= 0:
+        fail(f"igtrace: launches {launches}")
+    with open(ray_file) as f:
+        rays = igtrace.read_rays(f)
+    colors = rt.trace(rays, spp=1)
+    lines = "".join(f"{c[0]:e}\t{c[1]:e}\t{c[2]:e}\n" for c in colors)
+    with open(out_file) as f:
+        if f.read() != lines or len(rays) != N_RAYS:
+            fail("igtrace: its lines differ from Runtime.trace's")
+    runs["igtrace"] = dict(launches=launches)
+    paths["igtrace"] = dict(seconds=round(secs, 3), rays=len(rays),
+                            launches=launches, equal_to_runtime_trace=True,
+                            mean=float(colors.mean()))
+    del rt
+    seconds["igtrace"] = time.perf_counter() - ta
+
+    # ---- igview --fly: three poses, each EXR equal to a Runtime's frame
+    ta = time.perf_counter()
+    fly_dir = os.path.join(d, "fly")
+    rt, secs, _, launches, _ = drive_cli(
+        "igview", igview.main,
+        [demo_json, *film, "--spi", "1", "--frames-spp", "1", "--fly",
+         FLY_POSES, "--out", fly_dir], wrappers)
+    iters = wave_launches("igview", rt, launches, PATH_KERNELS["igview"])
+    del rt
+    ref = Runtime(demo_json, width=FILM, height=FILM, device=dev)
+    cam = ref.scene.camera
+    o = igview.Orientation(cam.eye, cam.dir, cam.up)
+    poses = [p for p in FLY_POSES.split(";") if p.strip()]
+    for i, p in enumerate(poses):
+        v = [float(t) for t in p.split(",")]
+        o.eye = np.asarray(v[:3], np.float64)
+        if len(v) >= 6:
+            o.dir = np.asarray(v[3:6], np.float64)
+            o.dir /= np.linalg.norm(o.dir)
+        igview.apply_pose(ref, o)
+        ref.step(spi=1)
+        got = frame_of("igview", os.path.join(fly_dir, f"fly_{i:04d}.exr"))
+        if not np.array_equal(got, ref.currentFrame()):
+            fail(f"igview: pose {i}'s EXR differs from the Runtime's frame")
+    with tonemap_devices() as tm_devs:
+        igview._tonemapped(ref, 0, 1.0)
+    if not tm_devs or not all(t.startswith("cuda") for t in tm_devs):
+        fail(f"igview: tonemapped on {tm_devs}, not the card")
+    del ref
+    runs["igview"] = dict(launches=launches)
+    paths["igview"] = dict(seconds=round(secs, 3), poses=len(poses),
+                           launches=launches, wave_iterations=iters,
+                           exrs_equal_to_runtime=True,
+                           tonemap_devices=tm_devs)
+    seconds["igview"] = time.perf_counter() - ta
+
+    # ---- the explicit work list against the arithmetic one
+    ta = time.perf_counter()
+    npix = FILM * FILM
+    idx = torch.from_numpy(np.random.default_rng(44).permutation(
+        npix * FRONT_SPP)).to(dev)
+    pix = idx % npix
+    work = dict(work_x=pix % FILM, work_y=pix // FILM, work_sample=idx // npix)
+    with torch.no_grad():
+        render_wavefront(rt_demo.scene, rt_demo.tables, 0, 0, 0, N_RAYS,
+                         spi=FRONT_SPP, work_mode="tables", **work)  # warm-up
+        reset_counts(wrappers)
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        fb_t, st = render_wavefront(rt_demo.scene, rt_demo.tables, 0, 0, 0,
+                                    N_RAYS, spi=FRONT_SPP,
+                                    work_mode="tables", **work)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - tb
+        launches = {f.__name__: f.launches for f in wrappers}
+        tb = time.perf_counter()
+        fb_a, _ = render_wavefront(rt_demo.scene, rt_demo.tables, 0, 0, 0,
+                                   N_RAYS, spi=FRONT_SPP)
+        torch.cuda.synchronize()
+        arith_secs = time.perf_counter() - tb
+    st = st.cpu().numpy()
+    iters = int(st[0] + st[2])
+    if any(launches[k] != (iters if k in PATH_KERNELS["work_list"] else 0)
+           for k in launches):
+        fail(f"work_list: launches {launches} vs {iters} wave iterations")
+    fb_t, fb_a = fb_t.cpu().numpy(), fb_a.cpu().numpy()
+    if not np.isfinite(fb_t).all() or not np.allclose(fb_t, fb_a, rtol=2e-4,
+                                                      atol=2e-5):
+        fail("work_list: the explicit work list's frame differs from the "
+             "arithmetic one's beyond rtol 2e-4")
+    runs["work_list"] = dict(launches=launches)
+    paths["work_list"] = dict(
+        seconds=round(secs, 4), arith_seconds=round(arith_secs, 4),
+        work_items=int(idx.shape[0]), launches=launches,
+        wave_iterations=iters,
+        max_rel_diff_to_arith=float(np.max(np.abs(fb_t - fb_a)
+                                           / np.maximum(np.abs(fb_a), 1e-6))))
+    seconds["work_list"] = time.perf_counter() - ta
+
+    # ---- the sharded render and train step
+    ta = time.perf_counter()
+    paths["sharded"] = sharded_path(dev, rt_demo, wrappers, d, bw)
+    runs["sharded"] = dict(launches=paths["sharded"]["launches"])
+    seconds["sharded"] = time.perf_counter() - ta
+    emit("frontends", t0, paths=paths,
+         part_seconds={k: round(v, 3) for k, v in seconds.items()})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs the port on a GPU "
               "and does not fall back to the CPU", file=sys.stderr)
         return 2
-    dev = torch.device("cuda", 0)
     # the port itself: without it beside this script nothing is printed
     from ignis_tpu_torch import native
+    # a fresh asset cache for the run, so that every table is built once
+    # here and `big`'s second load reads what its first one wrote
+    os.makedirs(native.build_dir(), exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="asset_cache_", dir=native.build_dir())
+    os.environ["IGNIS_TPU_TORCH_CACHE"] = cache
+    try:
+        return run(native)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def run(native):
+    dev = torch.device("cuda", 0)
     from ignis_tpu_torch.api import Runtime
     from ignis_tpu_torch.ops import bw_intersect as bw
     from ignis_tpu_torch.ops import mt_intersect as mt
@@ -2080,8 +2660,29 @@ def main():
     rt_big = Runtime(big_scene(**BIG_SCENE), width=FILM, height=FILM,
                      device=dev)
     sec = rt_big.stats.sections
+    big_first_seconds = time.perf_counter() - t1
+    # the second load reads the BVH and the packet rows from the asset cache
+    tb = time.perf_counter()
+    again = Runtime(big_scene(**BIG_SCENE), width=FILM, height=FILM,
+                    device=dev)
+    big_cached_seconds = time.perf_counter() - tb
+    asec = again.stats.sections
+    if "build_bvh" in asec or "build_traversal_tables" in asec:
+        fail("big: the second load built its tables again")
+    for k, v in rt_big.tables.items():
+        w = again.tables[k]
+        # bytes, not values: `pb_nodes` holds entry codes whose bits are NaNs
+        if (torch.is_tensor(v) and not (
+                v.dtype == w.dtype and v.shape == w.shape and torch.equal(
+                    v.contiguous().view(torch.uint8),
+                    w.contiguous().view(torch.uint8)))) or (
+                not torch.is_tensor(v) and v != w):
+            fail(f"big: the cached load's table {k} differs")
+    del again
+    tb = time.perf_counter()
     rt_big2 = Runtime(big_scene(**BIG_SECOND), width=FILM, height=FILM,
                       device=dev)
+    big2_seconds = time.perf_counter() - tb
     t2 = time.perf_counter()
     rt_inst = Runtime(instanced_scene(), width=FILM, height=FILM, device=dev)
     isec = rt_inst.stats.sections
@@ -2093,9 +2694,10 @@ def main():
          bw_second_seconds=round(t1 - t0b, 3),
          instanced_seconds=round(t3 - t2, 3),
          instanced_compile_seconds=round(isec["loading"].total, 3),
-         instanced_table_build_seconds=round(
-             isec["build_bvh"].total + isec["build_traversal_tables"].total
-             + isec["build_tlas"].total + isec["build_cluster_tree"].total, 3),
+         instanced_table_build_seconds=round(sum(
+             isec[k].total for k in ("build_bvh", "build_traversal_tables",
+                                     "build_tlas", "build_cluster_tree")
+             if k in isec), 3),
          instanced_cluster_tree_seconds=round(
              isec["build_cluster_tree"].total, 4),
          tl_ctree=list(rt_inst.tables["tl_ctree"].shape),
@@ -2111,10 +2713,18 @@ def main():
          bw_ctree=list(rt_demo.tables["bw_ctree"].shape),
          bw_second_tris=int(rt_bw2.tables["tri_v0"].shape[0]),
          bw_second_ctree=list(rt_bw2.tables["bw_ctree"].shape),
-         big_seconds=round(t2 - t1, 3),
+         big_seconds=round(big_first_seconds, 3),
+         big_cached_seconds=round(big_cached_seconds, 3),
+         big_cached_compile_seconds=round(asec["loading"].total, 3),
+         big_second_seconds=round(big2_seconds, 3),
+         asset_cache=cache_listing(),
          big_compile_seconds=round(sec["loading"].total, 3),
          big_table_build_seconds=round(
-             sec["build_bvh"].total + sec["build_traversal_tables"].total, 3),
+             sec["build_bvh"].total + sec["build_traversal_tables"].total
+             + sec["build_pb_nodes"].total, 3),
+         big_build_bvh_seconds=round(sec["build_bvh"].total, 3),
+         big_build_packet_rows_seconds=round(
+             sec["build_traversal_tables"].total, 3),
          big_pb_nodes_seconds=round(sec["build_pb_nodes"].total, 4),
          big_tris=int(rt_big.tables["tri_v0"].shape[0]),
          pb_rows=list(rt_big.tables["pb_rows"].shape),
@@ -2291,6 +2901,9 @@ def main():
 
     # ---- 16. transport: the light tracer and the photon mapper
     transport_phase(dev, wrappers, runs, bw, pb)
+
+    # ---- 17. frontends: the CLIs, the explicit work list, sharding
+    frontends_phase(dev, wrappers, runs, rt_demo, bw, pb)
 
     # ---- the kernels line: launches are those of the main paths' runs, in
     # all and for each path that has to launch the kernel

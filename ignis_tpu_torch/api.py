@@ -19,7 +19,10 @@ camera pass a sample, each in tiles of `tile_size` lanes.
     img = rt.currentFrame()
 
 `device=None` means the CUDA device and raises when there is none; the CPU is
-used only when the caller passes `device="cpu"`.
+used only when the caller passes `device="cpu"`.  `use_bvh=True` adds the
+binary-tree tables of the per-lane stack walk (`ops.bvh`), which the
+traversal dispatch prefers to the Baldwin-Weber kernel (igcli's default, as
+in the reference); `None` adds them above `_BVH_MIN_TRIS` triangles only.
 """
 
 from __future__ import annotations
@@ -47,6 +50,11 @@ PHOTON_MAPPERS = ("photonmapper", "ppm", "sppm")
 # smaller ones Baldwin-Weber tables and kernel.  The value is the reference
 # package's, kept so both packages build the same tables.
 _PB_MIN_TRIS = 4096
+# Soups of more triangles also get the binary-tree tables of the per-lane
+# stack walk (`bvh_*`) unless the caller says otherwise (the reference's
+# `use_bvh=None`); the dispatch reads them after the packet rows and before
+# the Baldwin-Weber rows.
+_BVH_MIN_TRIS = 8192
 
 
 def resolve_device(device):
@@ -82,48 +90,74 @@ def pack_tri_shade(tables):
     return out
 
 
-def build_accel_tables(tables, stats=None, instanced=None):
+def build_accel_tables(tables, stats=None, instanced=None, use_bvh=None):
     """Host-side acceleration tables for a compiled scene's numpy tables:
-    for the world-space soup the SAH BVH, then packet-BVH rows (>= 4096
-    triangles, with the kernel's copy of them, `pb_nodes`) or Baldwin-Weber
-    rows (fewer, with the kernel's cluster tree over them, `bw_ctree`), then
-    the packed shading rows;
+    for the world-space soup the SAH BVH, its binary-tree traversal tables
+    (`bvh_*`, where `use_bvh` is true, or None and the soup has more than
+    `_BVH_MIN_TRIS` triangles), then packet-BVH rows (>= 4096 triangles, with
+    the kernel's copy of them, `pb_nodes`) or Baldwin-Weber rows (fewer, with
+    the kernel's cluster tree over them, `bw_ctree`), then the packed shading
+    rows;
     for `instanced` (a compiled scene's `instanced` dict of unique shapes and
     instance records, or None) the two-level tables of `ops.tlas` and the
-    kernel's cluster tree over them (`tl_ctree`).  Returns a new dict."""
-    from ignis_tpu_torch.ops.bvh import build_bvh
+    kernel's cluster tree over them (`tl_ctree`).  The BVH, the packet rows
+    and the Baldwin-Weber rows go through the asset cache
+    (`utils.cache.cached_arrays_data`, kinds `bvh`, `pbvh`, `bwtab`, keyed on
+    the geometry); `stats` records a build only where it ran.  Returns a new
+    dict."""
+    from ignis_tpu_torch.ops.bvh import BVH, build_bvh, bvh_tables
+    from ignis_tpu_torch.utils.cache import cached_arrays_data
+
+    def timed(name, build):
+        def run():
+            t0 = time.perf_counter()
+            out = build()
+            if stats is not None:
+                stats.record(name, time.perf_counter() - t0)
+            return out
+        return run
+
     tables = dict(tables)
     ntris = tables["tri_v0"].shape[0]
     if ntris > 0:
         geo = (np.asarray(tables["tri_v0"]), np.asarray(tables["tri_e1"]),
                np.asarray(tables["tri_e2"]))
-        t0 = time.perf_counter()
-        bvh = build_bvh(*geo)
-        t1 = time.perf_counter()
+
+        def bvh_arrays():
+            b = build_bvh(*geo)
+            return dict(node_min=b.node_min, node_max=b.node_max,
+                        node_left=b.node_left, node_right=b.node_right,
+                        node_count=b.node_count, tri_order=b.tri_order)
+
+        bvh = BVH(**cached_arrays_data(geo, "bvh",
+                                       timed("build_bvh", bvh_arrays)))
+        if use_bvh is None:
+            use_bvh = ntris > _BVH_MIN_TRIS
+        if use_bvh:
+            tables = bvh_tables(bvh, tables)
         tri_flags = np.asarray(tables["ent_flags"])[
             np.asarray(tables["tri_ent"])]
+        key = geo + (tri_flags,)
         if ntris >= _PB_MIN_TRIS:
             from ignis_tpu_torch.ops.packet_bvh import (
                 build_packet_bvh, build_pb_nodes,
             )
-            tables.update(build_packet_bvh(bvh, *geo, tri_flags))
-            t3 = time.perf_counter()
-            tables["pb_nodes"] = build_pb_nodes(tables["pb_rows"])
-            if stats is not None:
-                stats.record("build_pb_nodes", time.perf_counter() - t3)
+            tables.update(cached_arrays_data(key, "pbvh", timed(
+                "build_traversal_tables",
+                lambda: build_packet_bvh(bvh, *geo, tri_flags))))
+            tables["pb_nodes"] = timed(
+                "build_pb_nodes", lambda: build_pb_nodes(tables["pb_rows"]))()
         else:
             from ignis_tpu_torch.ops.bw_intersect import (
                 build_bw_ctree, bw_tables,
             )
-            tables.update(bw_tables(*geo, tri_flags,
-                                    order=np.asarray(bvh.tri_order)))
+            tables.update(cached_arrays_data(key, "bwtab", timed(
+                "build_traversal_tables",
+                lambda: bw_tables(*geo, tri_flags,
+                                  order=np.asarray(bvh.tri_order)))))
             tables["bw_ctree"] = build_bw_ctree(tables["bw_clusters"])
-        t2 = time.perf_counter()
         # the shading rows exist only beside a soup
         tables["tri_shade"] = pack_tri_shade(tables)
-        if stats is not None:
-            stats.record("build_bvh", t1 - t0)
-            stats.record("build_traversal_tables", t2 - t1)
     if instanced:
         from ignis_tpu_torch.ops.tlas import (
             build_cluster_tree, build_tlas, check_encoding,
@@ -143,7 +177,7 @@ def build_accel_tables(tables, stats=None, instanced=None):
 
 class Runtime:
     def __init__(self, source, width=None, height=None, seed=0,
-                 tile_size=_DEFAULT_TILE, device=None):
+                 tile_size=_DEFAULT_TILE, use_bvh=None, device=None):
         device = resolve_device(device)
         stats = Statistics()
         t0 = time.perf_counter()
@@ -151,7 +185,8 @@ class Runtime:
         check_slice(scene)
         stats.record("loading", time.perf_counter() - t0)
         tables = build_accel_tables(scene.tables, stats,
-                                    instanced=scene.instanced)
+                                    instanced=scene.instanced,
+                                    use_bvh=use_bvh)
         self._setup(scene, tables, device, seed, tile_size, stats)
 
     @classmethod

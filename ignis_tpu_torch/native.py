@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and the OpenEXR shim.
 
 The sources in `csrc/` have a plain C interface and include no PyTorch header,
 so `nvcc` builds them in seconds.  They are compiled at first use (one `nvcc`
@@ -9,6 +9,11 @@ A failed build raises; nothing falls back to another implementation.
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
          -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu
     nvcc -shared -o libignis_kernels.so *.o
+
+`load_exr_shim()` builds `csrc/exr_shim.cpp` (host code over the system's
+OpenEXR 3.1, for the EXR compressions `utils.exr` does not decode itself)
+with `g++` into the same directory at first use, rebuilt when the source
+changes, and returns None where the library or the compiler is absent.
 """
 
 from __future__ import annotations
@@ -186,3 +191,52 @@ def check_table(name, t, cols, device):
         raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                          f"float32 (R, {cols}) tensor on {device}")
     return t
+
+
+# ------------------------------------------------------------ the EXR shim
+EXR_SHIM = "exr_shim.cpp"
+_EXR_LIBS = ("-lOpenEXR-3_1", "-lImath-3_1", "-lIlmThread-3_1", "-lIex-3_1")
+_exr_shim = None
+_exr_tried = False
+
+
+def _build_exr_shim() -> Path:
+    src = CSRC / EXR_SHIM
+    inc = [f"-I{d}" for d in ("/usr/include/OpenEXR", "/usr/include/Imath")
+           if os.path.isdir(d)]
+    flags = ["-O2", "-shared", "-fPIC", *inc]
+    h = hashlib.sha256(" ".join(flags + list(_EXR_LIBS)).encode())
+    h.update(src.read_bytes())
+    out_dir = build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    so = out_dir / f"libexr_shim_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        tmp = out_dir / f"{so.name}.tmp{os.getpid()}"
+        subprocess.run(["g++", *flags, "-o", str(tmp), str(src),
+                        *_EXR_LIBS], check=True, capture_output=True,
+                       text=True)
+        os.replace(tmp, so)
+    return so
+
+
+def load_exr_shim():
+    """ctypes handle of the OpenEXR reader shim (`ig_exr_read_size`,
+    `ig_exr_read`), or None when the system OpenEXR library (or g++) is
+    unavailable.  Built and loaded once a process."""
+    global _exr_shim, _exr_tried
+    if _exr_tried:
+        return _exr_shim
+    _exr_tried = True
+    try:
+        lib = ctypes.CDLL(str(_build_exr_shim()))
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    lib.ig_exr_read_size.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.ig_exr_read_size.restype = ctypes.c_int
+    lib.ig_exr_read.argtypes = [ctypes.c_char_p,
+                                ctypes.POINTER(ctypes.c_float)]
+    lib.ig_exr_read.restype = ctypes.c_int
+    _exr_shim = lib
+    return lib

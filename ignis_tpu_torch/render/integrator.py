@@ -23,10 +23,13 @@ The bounce loops are Python loops on `alive.any()`: one host sync per bounce
 one light).  `trace_wave(differentiable=True)` runs a fixed number of bounces
 instead, for autograd.
 
-Traversal dispatch for the world-space soup: `pb_rows` in the tables -> the
-packet-BVH kernel; `bw_tris` -> the Baldwin-Weber kernel; neither -> the
-whole-soup Moeller-Trumbore sweep, `ops.mt_intersect`'s kernel on the card
-and `ops.intersect` (plain torch) on the CPU.  Its result is combined with
+Traversal dispatch for the world-space soup, in the reference's order:
+`pb_rows` in the tables -> the packet-BVH kernel; `bvh_node_min` -> the
+per-lane stack walk of `ops.bvh` (tensor code, no kernel: the reference's
+XLA path, which `Runtime(use_bvh=True)` and igcli's default select);
+`bw_tris` -> the Baldwin-Weber kernel; none of them -> the whole-soup
+Moeller-Trumbore sweep, `ops.mt_intersect`'s kernel on the card and
+`ops.intersect` (plain torch) on the CPU.  Its result is combined with
 the instanced pool's (`tl_inst` -> `ops.tlas`) and the analytic spheres'
 (`sph_rows` -> `ops.spheres`): the nearer hit wins, and pool and sphere hits
 travel in the prim id past the soup's range.  The kernel wrappers launch CUDA
@@ -61,6 +64,7 @@ from ignis_tpu_torch.medium import (
     medium_coefficients, medium_eval, medium_eval_inf, medium_events,
     medium_sample, phase_sample,
 )
+from ignis_tpu_torch.ops.bvh import bvh_any, bvh_closest
 from ignis_tpu_torch.ops.bw_intersect import bw_any, bw_closest
 from ignis_tpu_torch.ops.intersect import intersect_any, intersect_closest
 from ignis_tpu_torch.ops.mt_intersect import mt_any, mt_closest
@@ -103,14 +107,6 @@ def _flags_trivial(scene, bit=None):
     return bool(((ent_flags & bit) != 0).all())
 
 
-def _check_tables(tables):
-    # the reference's dispatch reads the binary-tree tables (`bvh_*`) only
-    # where no packet rows sit beside them
-    if "bvh_node_min" in tables and "pb_rows" not in tables:
-        raise NotImplementedError("the per-lane stack BVH traversal is not "
-                                  "ported to ignis_tpu_torch yet")
-
-
 def sphere_prim_base(tables):
     """First prim id of the analytic-sphere range: past the soup and the
     instanced pool (see the combines of `_traverse_closest` and
@@ -132,19 +128,22 @@ def _nearer(pick_ok, t1, u1, v1, enc, out):
 
 def _traverse_closest(scene, tables, org, d, tmin, tmax, tri_mask,
                       mask_bit=None):
-    """Closest-hit dispatch: packet BVH > Baldwin-Weber brute > MT sweep for
-    the soup, then the instanced pool and the analytic spheres.
+    """Closest-hit dispatch: packet BVH > stack BVH > Baldwin-Weber brute >
+    MT sweep for the soup, then the instanced pool and the analytic spheres.
 
-    `tri_mask` is the per-triangle visibility array for the MT sweep;
-    `mask_bit` the equivalent ray-class bit for the other traversals, whose
-    tables carry packed visibility bits.  Traversal is detached: hit results
-    are piecewise constant in the differentiable parameters.
+    `tri_mask` is the per-triangle visibility array for the stack BVH and
+    the MT sweep; `mask_bit` the equivalent ray-class bit for the other
+    traversals, whose tables carry packed visibility bits.  Traversal is
+    detached: hit results are piecewise constant in the differentiable
+    parameters.
     """
     org, d, tmin, tmax = (x.detach() for x in (org, d, tmin, tmax))
     mb = MASK_BOUNCE if mask_bit is None else mask_bit
     base = tables["tri_v0"].shape[0]
     if "pb_rows" in tables:
         out = packet_bvh_closest(tables, org, d, tmin, tmax, mask_bit=mb)
+    elif "bvh_node_min" in tables:
+        out = bvh_closest(tables, org, d, tmin, tmax, tri_mask=tri_mask)
     elif "bw_tris" in tables:
         out = bw_closest(tables, org, d, tmin, tmax, mask_bit=mb)
     elif base == 0:
@@ -179,6 +178,8 @@ def _traverse_any(scene, tables, org, d, tmin, tmax, tri_mask,
     mb = MASK_SHADOW if mask_bit is None else mask_bit
     if "pb_rows" in tables:
         occ = packet_bvh_any(tables, org, d, tmin, tmax, mask_bit=mb)
+    elif "bvh_node_min" in tables:
+        occ = bvh_any(tables, org, d, tmin, tmax, tri_mask=tri_mask)
     elif "bw_tris" in tables:
         occ = bw_any(tables, org, d, tmin, tmax, mask_bit=mb)
     elif tables["tri_v0"].shape[0] == 0:
@@ -762,7 +763,6 @@ def trace_wave(scene, tables, x, y, sample, iteration, frame, user_seed,
     within `max_depth` bounces, so the radiance is the same as the
     non-differentiable loop's.  Traversal stays off the tape.
     """
-    _check_tables(tables)
     n = x.shape[0]
     dev = x.device
 
@@ -831,18 +831,23 @@ def trace_wave(scene, tables, x, y, sample, iteration, frame, user_seed,
 
 
 def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
-                     spi=1, tail_capacity=4096, work_mode="arith"):
-    """Render `spi` samples of every pixel through a fixed-capacity
-    regenerating wave.
+                     spi=1, tail_capacity=4096, work_mode="arith",
+                     work_x=None, work_y=None, work_sample=None):
+    """Render a work list through a fixed-capacity regenerating wave.
 
     Returns (framebuffer sum (H*W, 3) for this iteration, stats (9,)).  Dead
     lanes immediately pick up fresh camera work, so tail bounces of long
     paths do not run at low occupancy.
 
-    The work list is the canonical pixel x sample enumeration, derived
+    work_mode="arith" (the default, the Runtime's): the work list is the
+    canonical pixel x sample enumeration of `spi` samples, derived
     arithmetically from the work id, and radiance lands in a per-work-item
-    slot buffer (the reference's work_mode="arith"; its explicit work-list
-    mode is not ported and raises).
+    slot buffer (`work_*` unused).  work_mode="tables": the explicit work
+    list, (W,) integer tensors `work_x`, `work_y` (the pixel) and
+    `work_sample` (its sample index), gathered per work item; radiance is
+    added straight into the (H*W, 3) framebuffer, where lanes of one pixel
+    collide (`index_add_`, whose sums on the card are atomic, in no fixed
+    order).
 
     Tail cascade: once the work list is exhausted and the survivor count fits
     `tail_capacity`, the alive lanes are compacted into a narrow wave.
@@ -850,17 +855,21 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
     stats: [wave iters, alive-lane visits, tail iters, camera rays emitted,
     hits, misses, shadow rays, occluded shadows, bounce continuations].
     """
-    if work_mode != "arith":
-        raise NotImplementedError(
-            f"render_wavefront(work_mode='{work_mode}') is not ported to "
-            "ignis_tpu_torch yet")
-    _check_tables(tables)
+    if work_mode not in ("arith", "tables"):
+        raise ValueError(f"unknown work_mode '{work_mode}' (arith, tables)")
+    arith = work_mode == "arith"
     npix = scene.width * scene.height
-    w_total = npix * spi
     c = int(capacity)
     dev = tables["tri_v0"].device
     f32 = dict(dtype=torch.float32, device=dev)
     is_vol = scene.technique.type == "volpath"
+    if arith:
+        w_total = npix * spi
+    else:
+        work_x, work_y, work_sample = (
+            torch.as_tensor(a, device=dev).long()
+            for a in (work_x, work_y, work_sample))
+        w_total = work_x.shape[0]
 
     trivial = _flags_trivial(scene)
     # mixed camera/bounce lanes per wave: exact per-ray visibility needs
@@ -871,11 +880,17 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
                    else _tri_mask_for(tables, RAY_SHADOW))
 
     state = _fresh_state(c, dev)
-    # `pixel` holds the framebuffer row of the lane: its work-item id.  Idle
-    # lanes park on the c spare rows past the end of `fb`, one each, so
-    # `index_add_` never goes out of range.
-    state["pixel"] = w_total + torch.arange(c, dtype=torch.int64, device=dev)
-    fb = torch.zeros((w_total + c, 3), **f32)
+    if arith:
+        # `pixel` holds the framebuffer row of the lane: its work-item id.
+        # Idle lanes park on the c spare rows past the end of `fb`, one
+        # each, so `index_add_` never goes out of range.
+        state["pixel"] = w_total + torch.arange(c, dtype=torch.int64,
+                                                device=dev)
+        fb = torch.zeros((w_total + c, 3), **f32)
+    else:
+        # `pixel` is the lane's pixel; idle lanes add zeros to pixel 0
+        state["pixel"] = torch.zeros(c, dtype=torch.int64, device=dev)
+        fb = torch.zeros((npix, 3), **f32)
     stats = torch.zeros(9, **f32)
     next_work = 0
     zero = torch.zeros((), **f32)
@@ -894,10 +909,13 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
         wid = next_work + rank
         take = dead & (wid < w_total)
         wid_c = torch.clamp(wid, 0, w_total - 1)
-        pix = wid_c % npix
-        gx = pix % scene.width
-        gy = pix // scene.width
-        gs = wid_c // npix
+        if arith:
+            pix = wid_c % npix
+            gx = pix % scene.width
+            gy = pix // scene.width
+            gs = wid_c // npix
+        else:
+            gx, gy, gs = work_x[wid_c], work_y[wid_c], work_sample[wid_c]
         seed_n, counter_n, org_n, dir_n, tmin_n, tmax_n = _emit_camera(
             scene, gx, gy, gs, iteration, frame, user_seed, tables, spi)
 
@@ -922,7 +940,8 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
             st["voldepth"] = torch.where(
                 take, torch.zeros_like(st["voldepth"]), st["voldepth"])
             st["nullfl"] = st["nullfl"] & ~take
-        st["pixel"] = torch.where(take, wid_c, st["pixel"])
+        st["pixel"] = torch.where(take, wid_c if arith
+                                  else gy * scene.width + gx, st["pixel"])
         st["alive"] = st["alive"] | take
         n_take = _count(take)
 
@@ -936,6 +955,8 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
         return st_next, inc, n_take
 
     def fb_out():
+        if not arith:
+            return fb
         # per-work-item slots -> per-pixel sums
         return fb[:w_total].reshape(spi, npix, 3).sum(dim=0)
 

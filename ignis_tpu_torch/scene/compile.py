@@ -658,9 +658,11 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
         if bsdf_types[i] == BSDF_DJMEASURED:
             obj = flat_leaves_a[i]
             from ignis_tpu_torch.measured.djmeasured import load_brdf
+            from ignis_tpu_torch.utils.cache import cached_pickle
             try:
-                tbl, info = load_brdf(scene.resolve_path(obj["filename"]),
-                                      f"dj{i}")
+                tbl, info = cached_pickle(
+                    scene.resolve_path(obj["filename"]), "djbrdf",
+                    lambda p: load_brdf(p, f"dj{i}"), extra=f"dj{i}")
             except Exception as e:
                 import warnings
                 warnings.warn(f"Failed to load djmeasured "
@@ -675,9 +677,13 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
             obj = flat_leaves_a[i]
             from ignis_tpu_torch.measured.tensortree import (
                 load_tensortree_xml, tensortree_tables)
+            from ignis_tpu_torch.utils.cache import cached_pickle
             try:
-                tbl, info = tensortree_tables(load_tensortree_xml(
-                    scene.resolve_path(obj["filename"])), f"tt{i}")
+                tbl, info = cached_pickle(
+                    scene.resolve_path(obj["filename"]), "ttbsdf",
+                    lambda p: tensortree_tables(load_tensortree_xml(p),
+                                                f"tt{i}"),
+                    extra=f"tt{i}")
             except Exception as e:
                 import warnings
                 warnings.warn(f"Failed to load tensortree "
@@ -694,9 +700,12 @@ def compile_scene(scene: Scene, width: int | None = None, height: int | None = N
             continue
         obj = flat_leaves_a[i]
         from ignis_tpu_torch.measured.klems import klems_tables, load_klems_xml
+        from ignis_tpu_torch.utils.cache import cached_pickle
         try:
-            tbl, info = klems_tables(load_klems_xml(
-                scene.resolve_path(obj["filename"])), f"klems{i}")
+            tbl, info = cached_pickle(
+                scene.resolve_path(obj["filename"]), "klems",
+                lambda p: klems_tables(load_klems_xml(p), f"klems{i}"),
+                extra=f"klems{i}")
         except Exception as e:
             import warnings
             warnings.warn(f"Failed to load klems '{obj.get('filename')}': {e};"

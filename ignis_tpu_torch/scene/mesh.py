@@ -399,6 +399,18 @@ def load_mesh_file(path: str | Path) -> TriMesh:
     else:
         raise ValueError(f"Unsupported mesh format: {path}")
 
-    # no on-disk asset cache in this package: meshes are converted at
-    # every start
-    return loader(path)
+    # on-disk cache of the converted mesh (`utils.cache`)
+    from ignis_tpu_torch.utils.cache import cached_arrays
+
+    def build(p):
+        m = loader(p)
+        out = dict(vertices=m.vertices, indices=m.indices)
+        if m.normals is not None:
+            out["normals"] = m.normals
+        if m.texcoords is not None:
+            out["texcoords"] = m.texcoords
+        return out
+
+    d = cached_arrays(path, "mesh", build)
+    return TriMesh(d["vertices"], d["indices"], d.get("normals"),
+                   d.get("texcoords"))

@@ -1,10 +1,10 @@
 """Minimal OpenEXR scanline I/O (uncompressed float32 RGB).
 
-Counterpart of the numpy and zlib part of ignis_tpu/utils/exr.py: writing
-uncompressed float32 RGB, reading uncompressed and ZIP/ZIPS-compressed
-float32/half scanline files.  Other compressions (PIZ, RLE, PXR24, B44, DWA),
-which the JAX package hands to a native OpenEXR shim, raise
-`NotImplementedError` naming the compression.
+Counterpart of ignis_tpu/utils/exr.py: writing uncompressed float32 RGB,
+reading uncompressed and ZIP/ZIPS-compressed float32/half scanline files in
+numpy and zlib.  Other compressions (PIZ, RLE, PXR24, B44, DWA) go to the
+native OpenEXR shim (`native.load_exr_shim`); where it is absent or cannot
+read the file, `read_exr` raises `ValueError`, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -15,8 +15,6 @@ import zlib
 import numpy as np
 
 _MAGIC = 20000630
-_COMPRESSIONS = {0: "NONE", 1: "RLE", 2: "ZIPS", 3: "ZIP", 4: "PIZ",
-                 5: "PXR24", 6: "B44", 7: "B44A", 8: "DWAA", 9: "DWAB"}
 
 
 def _attr(name: str, type_: str, data: bytes) -> bytes:
@@ -73,9 +71,30 @@ def write_exr(path, image: np.ndarray) -> None:
         f.write(b"".join(rows))
 
 
+def _read_exr_native(path):
+    """Read any EXR through the native OpenEXR shim; None when the shim is
+    unavailable or cannot read the file."""
+    import ctypes
+
+    from ignis_tpu_torch.native import load_exr_shim
+    lib = load_exr_shim()
+    if lib is None:
+        return None
+    w = ctypes.c_int()
+    h = ctypes.c_int()
+    p = str(path).encode()
+    if lib.ig_exr_read_size(p, ctypes.byref(w), ctypes.byref(h)) != 0:
+        return None
+    buf = np.empty((h.value, w.value, 4), np.float32)
+    if lib.ig_exr_read(
+            p, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float))) != 0:
+        return None
+    return np.ascontiguousarray(buf[..., :3])
+
+
 def read_exr(path) -> np.ndarray:
     """Read scanline EXR (none/zip/zips compression; float/half) -> (H,W,3).
-    Other compressions raise `NotImplementedError`."""
+    Other compressions go to the native OpenEXR shim."""
     with open(path, "rb") as f:
         data = f.read()
     magic, version = struct.unpack_from("<ii", data, 0)
@@ -118,9 +137,12 @@ def read_exr(path) -> np.ndarray:
     elif comp in (2, 3):  # ZIPS, ZIP
         rows_per_block = 1 if comp == 2 else 16
     else:
-        raise NotImplementedError(
-            f"EXR compression {_COMPRESSIONS.get(comp, comp)} is not ported "
-            "to ignis_tpu_torch (it reads none, ZIPS and ZIP)")
+        # PIZ / RLE / PXR24 / B44 / DWA -> the native OpenEXR shim
+        img = _read_exr_native(path)
+        if img is not None:
+            return img
+        raise ValueError(f"Unsupported EXR compression {comp} "
+                         f"(and no system OpenEXR library for fallback)")
 
     nblocks = (h + rows_per_block - 1) // rows_per_block
     offsets = struct.unpack_from(f"<{nblocks}q", data, pos)

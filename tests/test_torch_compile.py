@@ -616,8 +616,8 @@ def test_shadow_only_flags_stay_in_the_slice():
 
 def test_gltf_and_exr_raise():
     """An empty glTF file loads as in the JAX package (a scene with only
-    the default environment); EXR images are read (none / ZIPS / ZIP) and
-    any other compression raises, naming it."""
+    the default environment); an EXR image the readers cannot decode (it
+    says PIZ but holds ZIPS blocks) raises the JAX package's ValueError."""
     from ignis_tpu.scene.parser import load_scene_file as j_load_scene_file
     from ignis_tpu_torch.scene.parser import load_scene_file
     from ignis_tpu_torch.texture.loader import load_image_rgb
@@ -631,5 +631,10 @@ def test_gltf_and_exr_raise():
         assert list(got.lights) == ["__env"]
         p = os.path.join(d, "a.exr")
         _zips_exr(p, np.zeros((2, 2, 3), np.float32), comp=4)
-        with pytest.raises(NotImplementedError, match="PIZ"):
+        from ignis_tpu.texture.loader import load_image_rgb as j_load
+        with pytest.raises(ValueError) as want:
+            j_load(p)
+        with pytest.raises(ValueError, match="Unsupported EXR compression") \
+                as got:
             load_image_rgb(p)
+        assert str(got.value) == str(want.value)

@@ -200,9 +200,10 @@ def test_runtime_from_jax_tables_beside_the_binary_bvh(tmp_path, monkeypatch):
     """Over 8192 triangles the JAX Runtime adds its binary-BVH tables
     (`bvh_*`) beside the packet rows; the dispatch never reads them there,
     so they go through the port as they are: same frame as the port's own
-    Runtime on the same scene and seed.  Without the packet rows they still
-    raise, as that traversal is not ported."""
-    from ignis_tpu_torch.render.integrator import _check_tables
+    Runtime on the same scene and seed.  Without the packet rows the
+    dispatch walks them (`ops.bvh`, the reference's per-lane stack walk):
+    the same frame again."""
+    from ignis_tpu_torch.ops.bvh import bvh_closest
     monkeypatch.setenv("IGNIS_TPU_CACHE", str(tmp_path))
     scene = big_scene(n_spheres=8, subdiv=3)
     jrt = JRuntime(scene, width=16, height=16, seed=5)
@@ -217,9 +218,14 @@ def test_runtime_from_jax_tables_beside_the_binary_bvh(tmp_path, monkeypatch):
     assert np.isfinite(got).all() and got.mean() > 0
     assert _lanes_close(got.reshape(-1, 3), ref.reshape(-1, 3)).mean() >= 0.99
     assert abs(got.mean() - ref.mean()) <= 1e-2 * ref.mean()
-    no_rows = {k: v for k, v in rt.tables.items() if not k.startswith("pb_")}
-    with pytest.raises(NotImplementedError, match="per-lane stack BVH"):
-        _check_tables(no_rows)
+    no_rows = {k: v for k, v in tables.items() if not k.startswith("pb_")}
+    calls = bvh_closest.calls
+    walk = runtime_from_jax_tables(jrt.scene, no_rows, device="cpu", seed=5)
+    walk.step(spi=1)
+    assert bvh_closest.calls > calls
+    got2 = walk.currentFrame()
+    assert _lanes_close(got2.reshape(-1, 3), got.reshape(-1, 3)).mean() >= 0.99
+    assert abs(got2.mean() - got.mean()) <= 1e-2 * got.mean()
 
 
 def test_runtime_reset_and_replay_bitwise(step_frames):
@@ -253,8 +259,9 @@ def test_wavefront_equals_trace_wave_per_pixel():
 
 
 def test_wavefront_tail_cascade_and_work_tables():
-    """The tail cascade changes the schedule, not the image; the reference's
-    explicit work-list mode is outside the slice and raises."""
+    """The tail cascade changes the schedule, not the image; neither does
+    the explicit work list (`work_mode="tables"`) of the same pixel x sample
+    enumeration."""
     ts = t_compile(demo_scene(), 16, 16)
     tables = tables_from_numpy(build_accel_tables(ts.tables), "cpu")
     kw = dict(capacity=128, spi=1)
@@ -270,8 +277,13 @@ def test_wavefront_tail_cascade_and_work_tables():
         # lane visits are the same whatever the schedule
         assert int(s_casc[1]) == int(s_wide[1])
     assert int(s_wide[2]) == 0 and max(tail_iters) > 0    # tail iterations
-    with pytest.raises(NotImplementedError, match="work_mode"):
-        render_wavefront(ts, tables, 1, 0, 4, work_mode="tables", **kw)
+    idx = torch.arange(16 * 16)
+    listed, s_list = render_wavefront(
+        ts, tables, 1, 0, 4, work_mode="tables", work_x=idx % 16,
+        work_y=idx // 16, work_sample=torch.zeros_like(idx), **kw)
+    np.testing.assert_allclose(listed.numpy(), wide.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    assert int(s_list[1]) == int(s_wide[1])
 
 
 def test_trace_wave_tail_cascade():

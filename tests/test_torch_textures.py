@@ -270,10 +270,16 @@ def test_exr_write_and_read_match_jax(tmp_path):
 
 
 def test_exr_compression_not_read_raises(tmp_path):
+    """A file that says PIZ but holds ZIPS blocks: the OpenEXR shim cannot
+    read it (or is absent), and both packages raise the same ValueError."""
     p = str(tmp_path / "piz.exr")
     _zips_exr(p, np.zeros((2, 2, 3), np.float32), comp=4)
-    with pytest.raises(NotImplementedError, match="PIZ"):
+    with pytest.raises(ValueError) as want:
+        jexr.read_exr(p)
+    with pytest.raises(ValueError, match="Unsupported EXR compression 4") \
+            as got:
         texr.read_exr(p)
+    assert str(got.value) == str(want.value)
 
 
 # ------------------------------------------------------------ baking
