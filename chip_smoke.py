@@ -2095,14 +2095,17 @@ def recorded_runtimes():
 
 def drive_cli(path, main, argv, wrappers):
     """One run of a CLI's `main(argv)`, a main path: counts (kernel launches
-    and the stack walk's calls and host syncs) to 0 just before, read just
-    after.  Returns (its runtime, seconds, stdout, launches, stack)."""
+    and the stack walk's calls) to 0 just before, read just after, with the
+    host syncs of the run (`stack["host_syncs"]`).  Returns (its runtime,
+    seconds, stdout, launches, stack)."""
     from ignis_tpu_torch.ops import bvh
+    from ignis_tpu_torch.utils.stats import host_syncs
     buf = io.StringIO()
     with recorded_runtimes() as made:
         reset_counts(wrappers)
         for f in (bvh.bvh_closest, bvh.bvh_any):
-            f.calls = f.host_syncs = 0
+            f.calls = 0
+        syncs = host_syncs()
         torch.cuda.synchronize()
         ta = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -2110,8 +2113,9 @@ def drive_cli(path, main, argv, wrappers):
         torch.cuda.synchronize()
         secs = time.perf_counter() - ta
     launches = {f.__name__: f.launches for f in wrappers}
-    stack = {f.__name__: dict(calls=f.calls, host_syncs=f.host_syncs)
+    stack = {f.__name__: dict(calls=f.calls)
              for f in (bvh.bvh_closest, bvh.bvh_any)}
+    stack["host_syncs"] = host_syncs() - syncs
     if code != 0:
         fail(f"{path}: exit code {code}")
     return (made[0] if made else None), secs, buf.getvalue(), launches, stack
@@ -2127,8 +2131,8 @@ def wave_launches(path, rt, launches, names, stack=None):
     if iters <= 0 or launches != want:
         fail(f"{path}: launches {launches}, want {want} ({iters} wave "
              "iterations)")
-    if stack is not None and any(s["calls"] != iters
-                                 for s in stack.values()):
+    if stack is not None and any(stack[f]["calls"] != iters
+                                 for f in ("bvh_closest", "bvh_any")):
         fail(f"{path}: stack walk calls {stack} vs {iters} wave iterations")
     if rt._dev_stats_capacity != N_RAYS:
         fail(f"{path}: a wave holds {rt._dev_stats_capacity} rays, not "
@@ -2196,6 +2200,7 @@ def stack_cpu_vs_card(rt, dev):
     equal but for exact t ties, t within STACK_T_REL, occlusion equal; the
     card's milliseconds and host syncs a call."""
     from ignis_tpu_torch.ops import bvh
+    from ignis_tpu_torch.utils.stats import host_syncs
     cpu = {k: v.cpu() for k, v in rt.tables.items()
            if k.startswith("bvh_")}
     side = int(round(N_RAYS ** 0.5))
@@ -2221,10 +2226,10 @@ def stack_cpu_vs_card(rt, dev):
                               torch.full((org.shape[0],), 2.0))
         if not torch.equal(occ.cpu(), occ_cpu):
             fail(f"stack walk {name} rays: occlusion card vs CPU differs")
-        syncs = bvh.bvh_closest.host_syncs
+        syncs = host_syncs()
         ms = cuda_ms(lambda: bvh.bvh_closest(rt.tables, org, d, tmin, tmax),
                      3)
-        syncs_per_call = (bvh.bvh_closest.host_syncs - syncs) / 4
+        syncs_per_call = (host_syncs() - syncs) / 4
         any_ms = cuda_ms(lambda: bvh.bvh_any(rt.tables, org, d, tmin, tmax),
                          3)
         out[name] = dict(rays=int(org.shape[0]), hits=int(hit.sum()),
@@ -2401,13 +2406,13 @@ def frontends_phase(dev, wrappers, runs, rt_demo, bw, pb):
         wrappers)
     iters = wave_launches("igcli", rt, launches, (), stack)
     img = frame_of("igcli", exr("igcli"))
-    syncs = sum(s["host_syncs"] for s in stack.values())
+    syncs = stack["host_syncs"]
     runs["igcli"] = dict(launches=launches)
     paths["igcli"] = dict(
         seconds=round(secs, 3), samples=samples_line(text),
         launches=launches, wave_iterations=iters, stack_walk=stack,
-        stack_host_syncs_per_step=syncs,
-        stack_host_syncs_per_wave_iteration=round(syncs / iters, 2),
+        host_syncs_per_step=syncs,
+        host_syncs_per_wave_iteration=round(syncs / iters, 2),
         mean=float(img.mean()),
         stack_cpu_vs_card=stack_cpu_vs_card(rt, dev),
         profiled_step=profiled_step(rt, FRONT_SPP))
@@ -2455,8 +2460,8 @@ def frontends_phase(dev, wrappers, runs, rt_demo, bw, pb):
         [room_json, *film, "--spp", "1", "-o", exr("igcli_room")], wrappers)
     iters = wave_launches("igcli_room", rt, launches,
                           PATH_KERNELS["igcli_room"])
-    if "bvh_node_min" not in rt.tables or any(s["calls"]
-                                              for s in stack.values()):
+    if "bvh_node_min" not in rt.tables or any(
+            stack[f]["calls"] for f in ("bvh_closest", "bvh_any")):
         fail("igcli_room: the room must hold bvh_* tables and never walk "
              "them (the packet rows come first)")
     del rt

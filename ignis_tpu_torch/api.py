@@ -39,7 +39,7 @@ from ignis_tpu_torch.render.integrator import (
 from ignis_tpu_torch.scene.compile import (
     CompiledScene, check_slice, load_and_compile,
 )
-from ignis_tpu_torch.utils.stats import Statistics
+from ignis_tpu_torch.utils.stats import Statistics, host_syncs, span
 
 _DEFAULT_TILE = 1 << 16
 # the techniques that trace paths from the lights, by every name the
@@ -227,7 +227,9 @@ class Runtime:
             from ignis_tpu_torch.ops.tlas import build_cluster_tree
             tables = dict(tables, tl_ctree=build_cluster_tree(
                 tables["tl_clust"], tables["tl_inst"]))
-        self.tables = tables_from_numpy(tables, device)
+        # the tables' move to the device, where the CUDA context starts
+        with stats.section("upload"):
+            self.tables = tables_from_numpy(tables, device)
         self.seed = int(seed)
         self.iteration = 0
         self.frame = 0
@@ -317,11 +319,16 @@ class Runtime:
 
     def step(self, spi=1):
         """Render `spi` samples/pixel for this iteration and accumulate.
-        Returns after the device has finished the step."""
+        Returns after the device has finished the step.  The host's blocking
+        reads of device values in it are added to the `HostSyncs`
+        quantity."""
         t0 = time.perf_counter()
-        self._step_impl(spi)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("step", request=self.iteration):
+            syncs = host_syncs()
+            self._step_impl(spi)
+            self.stats.add("HostSyncs", host_syncs() - syncs)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         # the first step includes the kernels' build and load
         name = "step" if self._first_step_done else "first step"

@@ -137,7 +137,7 @@ def prepare_surface(scene, tables, surf, d, org=None):
     apply_normal_mod(scene, tables, surf, d, org)
     dev = d.device
     mat_id = surf["mat_id"].long()
-    types = torch.as_tensor(scene.bsdf_types, dtype=torch.int32, device=dev)
+    types = device_const(tuple(scene.bsdf_types), torch.int32, dev)
     mat_type = types[mat_id]
     surf["colors"], surf["scalars"] = union.material_params(
         scene, tables, surf)
@@ -145,8 +145,8 @@ def prepare_surface(scene, tables, surf, d, org=None):
     if not scene_has_lobes(scene):
         return mat_type, spec
 
-    types_b = torch.as_tensor([max(t, 0) for t in scene.bsdf_types_b],
-                              dtype=torch.int32, device=dev)
+    types_b = device_const(tuple(max(t, 0) for t in scene.bsdf_types_b),
+                           torch.int32, dev)
     mat_type_b = types_b[mat_id]
     surf["mat_type_b"] = mat_type_b
     surf["mix_kind"] = tables["mat_mix_kind"][mat_id]

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ignis_tpu_torch.utils.stats import host_item
+
 M32 = 0xFFFFFFFF
 _FNV_INIT = 0x811C9DC5
 _FNV_PRIME = 16777619
@@ -109,8 +111,8 @@ def next_u32_range(seed, counter, rng_range, active=None):
     Scaling-division with a redraw loop on the biased tail.  Lanes that have
     accepted stop advancing their counter; `active` masks lanes that do not
     draw at all (counter untouched, result 0).  The redraw loop is a Python
-    loop that ends on `not pending.any()`: one host sync per round, almost
-    always one round.
+    loop that ends on `not pending.any()`: one host sync per round
+    (`utils.stats.host_item`), almost always one round.
     """
     counter = _u32(counter)
     rng_range = _u32(rng_range)
@@ -133,7 +135,7 @@ def next_u32_range(seed, counter, rng_range, active=None):
         ret = torch.where(pending, bits, ret)
         counter = torch.where(pending, (counter + 1) & M32, counter)
         pending = pending & ~full & (ret >= past)
-        if not bool(pending.any()):
+        if not host_item(pending.any()):
             break
     value = torch.where(full, ret,
                         torch.div(ret, scaling, rounding_mode="floor"))

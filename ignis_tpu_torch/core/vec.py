@@ -12,6 +12,8 @@ import functools
 import numpy as np
 import torch
 
+from ignis_tpu_torch.utils.stats import host_tensor
+
 FLT_EPS = float(np.float32(1.1920928955078125e-07))  # 2^-23
 FLT_MAX = float(np.float32(3.4028234663852886e38))
 FLT_INF = float("inf")
@@ -165,8 +167,10 @@ def transform_normal(nm, n):
 def device_const(x, dtype, device):
     """A tensor of `x` (a number or nested tuples) on `device`, made once: a
     Python number given to `torch.where` is made on the device anew (a
-    launch) at every call."""
-    return torch.tensor(x, dtype=dtype, device=device)
+    launch) at every call, and a table made per call reaches a CUDA device
+    by a blocking copy, a host sync, every time (`utils.stats.host_tensor`
+    counts the one made here)."""
+    return host_tensor(x, dtype, device)
 
 
 def device_scalar(x, device):

@@ -11,8 +11,8 @@ lane of the wave in lockstep: each lane owns a `STACK_DEPTH`-entry stack and
 every loop iteration visits one node per lane (slab test, or a leaf's
 batched Moeller-Trumbore test).  This is tensor code, not a kernel: the
 reference computes it in XLA (`lax.while_loop`).  The loop runs while any
-lane has a stack entry, one host sync an iteration, counted in the
-functions' `host_syncs` attribute (`calls` counts the calls).  The
+lane has a stack entry, one host sync an iteration, read through
+`utils.stats.host_item`, which counts it (`calls` counts the calls).  The
 reference's behaviour is kept as it is: a closest-hit lane pushes the far
 child, then the near one (`lnear <= rnear` takes the left child as near);
 an any-hit lane pushes right, then left; a full stack drops the entries it
@@ -29,6 +29,7 @@ import torch
 
 from ignis_tpu_torch.core.vec import cross
 from ignis_tpu_torch.ops.ref_float import is_zero, safe_inv
+from ignis_tpu_torch.utils.stats import host_item
 
 LEAF_SIZE = 4
 STACK_DEPTH = 48
@@ -279,8 +280,7 @@ def bvh_closest(tables, org, d, tmin, tmax, tri_mask=None,
     lanes = torch.arange(n, device=dev)
     last = nd["min"].shape[0] - 1
     while True:
-        bvh_closest.host_syncs += 1
-        if not bool((sp > 0).any()):
+        if not host_item((sp > 0).any()):
             break
         active = sp > 0
         node = stack[lanes, torch.clamp_min(sp - 1, 0)]
@@ -338,8 +338,7 @@ def bvh_any(tables, org, d, tmin, tmax, tri_mask=None,
     lanes = torch.arange(n, device=dev)
     last = nd["min"].shape[0] - 1
     while True:
-        bvh_any.host_syncs += 1
-        if not bool((sp > 0).any()):
+        if not host_item((sp > 0).any()):
             break
         active = (sp > 0) & ~occluded
         sp = torch.where(occluded, torch.zeros_like(sp), sp)
@@ -369,5 +368,5 @@ def bvh_any(tables, org, d, tmin, tmax, tri_mask=None,
     return occluded
 
 
-bvh_closest.calls = bvh_closest.host_syncs = 0
-bvh_any.calls = bvh_any.host_syncs = 0
+bvh_closest.calls = 0
+bvh_any.calls = 0

@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from ignis_tpu_torch.render.integrator import trace_wave
+from ignis_tpu_torch.utils.stats import span
 
 
 def _default_backend():
@@ -228,19 +229,26 @@ def train_step(scene, tables, x, y, sample, iteration, frame, seed, target,
     render `trace_wave(..., differentiable=True)` over the lanes (x, y);
     each table of `param_keys` becomes p - lr * dloss/dp.  The tables given
     are not changed: the updated ones are new leaf tensors that require
-    grad, ready for the next step; the others are the same objects."""
+    grad, ready for the next step; the others are the same objects.  Under
+    a profiler the render and loss, the gradient and the update are the
+    spans `train.forward`, `train.backward` and `train.update`, each with
+    its device interval on a CUDA device."""
     params = {k: tables[k].detach().to(torch.float32).requires_grad_(True)
               for k in param_keys}
     t = dict(tables)
     t.update(params)
-    color = trace_wave(scene, t, x, y, sample, iteration, frame, seed,
-                       differentiable=True)
-    loss = torch.mean((color - target) ** 2)
-    grads = torch.autograd.grad(loss, [params[k] for k in param_keys],
-                                allow_unused=True)
+    dev = x.device
+    with span("train.forward", request=iteration, device=dev):
+        color = trace_wave(scene, t, x, y, sample, iteration, frame, seed,
+                           differentiable=True)
+        loss = torch.mean((color - target) ** 2)
+    with span("train.backward", request=iteration, device=dev):
+        grads = torch.autograd.grad(loss, [params[k] for k in param_keys],
+                                    allow_unused=True)
     out = dict(tables)
-    for k, g in zip(param_keys, grads):
-        # a table the render never read has a zero gradient
-        new = params[k] if g is None else params[k] - lr * g
-        out[k] = new.detach().requires_grad_(True)
+    with span("train.update", request=iteration, device=dev):
+        for k, g in zip(param_keys, grads):
+            # a table the render never read has a zero gradient
+            new = params[k] if g is None else params[k] - lr * g
+            out[k] = new.detach().requires_grad_(True)
     return loss.detach(), out

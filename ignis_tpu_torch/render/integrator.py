@@ -20,8 +20,10 @@ Two entry points share the same bounce core:
 
 The bounce loops are Python loops on `alive.any()`: one host sync per bounce
 (plus one in the light selector's rejection loop when the scene has more than
-one light).  `trace_wave(differentiable=True)` runs a fixed number of bounces
-instead, for autograd.
+one light), each read through `utils.stats.host_item`, which counts it.
+`trace_wave(differentiable=True)` runs a fixed number of bounces instead, for
+autograd.  Under a profiler each loop iteration is a `wave` span, with
+`emit`, `bounce`, `traverse` and `accum` spans inside (`utils.stats.span`).
 
 Traversal dispatch for the world-space soup, in the reference's order:
 `pb_rows` in the tables -> the packet-BVH kernel; `bvh_node_min` -> the
@@ -76,6 +78,7 @@ from ignis_tpu_torch.ops.tlas import tlas_any, tlas_closest
 from ignis_tpu_torch.render.camera import generate_rays, pixel_coord_from_xy
 from ignis_tpu_torch.render.sampler import sample_pixel
 from ignis_tpu_torch.scene.compile import LIGHT_AREA_PLANE
+from ignis_tpu_torch.utils.stats import host_item, span
 
 OFFSET = float(np.float32(0.001))  # ray offset
 
@@ -87,6 +90,11 @@ RAY_SHADOW = 0x8
 # techniques of one intersection a ray, traced by `trace_wave` alone
 SIMPLE_TECHNIQUES = ("debug", "ao", "wireframe", "lightvisibility",
                      "camera_check", "infobuffer")
+
+# the `wave` spans' attributes: an iteration of the full-width loop or of
+# the narrow tail
+_WIDE = {"tail": False}
+_TAIL = {"tail": True}
 
 
 def _handle_color(c, clamp_value):
@@ -137,62 +145,65 @@ def _traverse_closest(scene, tables, org, d, tmin, tmax, tri_mask,
     detached: hit results are piecewise constant in the differentiable
     parameters.
     """
-    org, d, tmin, tmax = (x.detach() for x in (org, d, tmin, tmax))
-    mb = MASK_BOUNCE if mask_bit is None else mask_bit
-    base = tables["tri_v0"].shape[0]
-    if "pb_rows" in tables:
-        out = packet_bvh_closest(tables, org, d, tmin, tmax, mask_bit=mb)
-    elif "bvh_node_min" in tables:
-        out = bvh_closest(tables, org, d, tmin, tmax, tri_mask=tri_mask)
-    elif "bw_tris" in tables:
-        out = bw_closest(tables, org, d, tmin, tmax, mask_bit=mb)
-    elif base == 0:
-        # no soup (every entity instanced or analytic): every ray misses it
-        out = (tmax.clone(), torch.zeros_like(tmax), torch.zeros_like(tmax),
-               torch.full(tmax.shape, -1, dtype=torch.int32,
-                          device=tmax.device))
-    else:
-        sweep = mt_closest if org.is_cuda else intersect_closest
-        out = sweep(org, d, tmin, tmax, tables["tri_v0"], tables["tri_e1"],
-                    tables["tri_e2"], tri_mask=tri_mask)
-    if "tl_inst" in tables:
-        # pool hits are encoded past the soup's id range as
-        # base + instance * pool_rows + pool_row, so the instance binding
-        # survives the (t, u, v, prim) plumbing
-        tt, tu, tv, ti, te = tlas_closest(tables, org, d, tmin, tmax,
-                                          mask_bit=mb)
-        enc = base + te * tables["tl_tris"].shape[0] + ti
-        out = _nearer(ti >= 0, tt, tu, tv, enc, out)
-    if "sph_rows" in tables:
-        st_, su, sv, si = sphere_closest(tables, org, d, tmin, tmax,
-                                         mask_bit=mb)
-        out = _nearer(si >= 0, st_, su, sv, sphere_prim_base(tables) + si,
-                      out)
-    return out
+    with span("traverse"):
+        org, d, tmin, tmax = (x.detach() for x in (org, d, tmin, tmax))
+        mb = MASK_BOUNCE if mask_bit is None else mask_bit
+        base = tables["tri_v0"].shape[0]
+        if "pb_rows" in tables:
+            out = packet_bvh_closest(tables, org, d, tmin, tmax, mask_bit=mb)
+        elif "bvh_node_min" in tables:
+            out = bvh_closest(tables, org, d, tmin, tmax, tri_mask=tri_mask)
+        elif "bw_tris" in tables:
+            out = bw_closest(tables, org, d, tmin, tmax, mask_bit=mb)
+        elif base == 0:
+            # no soup (every entity instanced or analytic): every ray misses it
+            out = (tmax.clone(), torch.zeros_like(tmax),
+                   torch.zeros_like(tmax),
+                   torch.full(tmax.shape, -1, dtype=torch.int32,
+                              device=tmax.device))
+        else:
+            sweep = mt_closest if org.is_cuda else intersect_closest
+            out = sweep(org, d, tmin, tmax, tables["tri_v0"], tables["tri_e1"],
+                        tables["tri_e2"], tri_mask=tri_mask)
+        if "tl_inst" in tables:
+            # pool hits are encoded past the soup's id range as
+            # base + instance * pool_rows + pool_row, so the instance binding
+            # survives the (t, u, v, prim) plumbing
+            tt, tu, tv, ti, te = tlas_closest(tables, org, d, tmin, tmax,
+                                              mask_bit=mb)
+            enc = base + te * tables["tl_tris"].shape[0] + ti
+            out = _nearer(ti >= 0, tt, tu, tv, enc, out)
+        if "sph_rows" in tables:
+            st_, su, sv, si = sphere_closest(tables, org, d, tmin, tmax,
+                                             mask_bit=mb)
+            out = _nearer(si >= 0, st_, su, sv, sphere_prim_base(tables) + si,
+                          out)
+        return out
 
 
 def _traverse_any(scene, tables, org, d, tmin, tmax, tri_mask,
                   mask_bit=None):
     """Any-hit dispatch; detached like `_traverse_closest`."""
-    org, d, tmin, tmax = (x.detach() for x in (org, d, tmin, tmax))
-    mb = MASK_SHADOW if mask_bit is None else mask_bit
-    if "pb_rows" in tables:
-        occ = packet_bvh_any(tables, org, d, tmin, tmax, mask_bit=mb)
-    elif "bvh_node_min" in tables:
-        occ = bvh_any(tables, org, d, tmin, tmax, tri_mask=tri_mask)
-    elif "bw_tris" in tables:
-        occ = bw_any(tables, org, d, tmin, tmax, mask_bit=mb)
-    elif tables["tri_v0"].shape[0] == 0:
-        occ = torch.zeros(tmax.shape, dtype=torch.bool, device=tmax.device)
-    else:
-        sweep = mt_any if org.is_cuda else intersect_any
-        occ = sweep(org, d, tmin, tmax, tables["tri_v0"], tables["tri_e1"],
-                    tables["tri_e2"], tri_mask=tri_mask)
-    if "tl_inst" in tables:
-        occ = occ | tlas_any(tables, org, d, tmin, tmax, mask_bit=mb)
-    if "sph_rows" in tables:
-        occ = occ | sphere_any(tables, org, d, tmin, tmax, mask_bit=mb)
-    return occ
+    with span("traverse"):
+        org, d, tmin, tmax = (x.detach() for x in (org, d, tmin, tmax))
+        mb = MASK_SHADOW if mask_bit is None else mask_bit
+        if "pb_rows" in tables:
+            occ = packet_bvh_any(tables, org, d, tmin, tmax, mask_bit=mb)
+        elif "bvh_node_min" in tables:
+            occ = bvh_any(tables, org, d, tmin, tmax, tri_mask=tri_mask)
+        elif "bw_tris" in tables:
+            occ = bw_any(tables, org, d, tmin, tmax, mask_bit=mb)
+        elif tables["tri_v0"].shape[0] == 0:
+            occ = torch.zeros(tmax.shape, dtype=torch.bool, device=tmax.device)
+        else:
+            sweep = mt_any if org.is_cuda else intersect_any
+            occ = sweep(org, d, tmin, tmax, tables["tri_v0"], tables["tri_e1"],
+                        tables["tri_e2"], tri_mask=tri_mask)
+        if "tl_inst" in tables:
+            occ = occ | tlas_any(tables, org, d, tmin, tmax, mask_bit=mb)
+        if "sph_rows" in tables:
+            occ = occ | sphere_any(tables, org, d, tmin, tmax, mask_bit=mb)
+        return occ
 
 
 def _surface_at(tables, prim, org, direction, t, u, v):
@@ -775,8 +786,9 @@ def trace_wave(scene, tables, x, y, sample, iteration, frame, user_seed,
     if org is None:
         # the camera emitter is called without `spi` here, as in the
         # reference: its low-discrepancy index is iteration + sample
-        seed, counter, org, direction, tmin, tmax = _emit_camera(
-            scene, x, y, sample, iteration, frame, user_seed, tables)
+        with span("emit"):
+            seed, counter, org, direction, tmin, tmax = _emit_camera(
+                scene, x, y, sample, iteration, frame, user_seed, tables)
     else:
         seed = rng.create_seed(sample, iteration, frame, x, y, user_seed)
         counter = torch.ones_like(seed)
@@ -798,32 +810,37 @@ def trace_wave(scene, tables, x, y, sample, iteration, frame, user_seed,
     def bounce(state, accum, first):
         tri_mask = mask_cam if first else mask_bounce
         mbit = MASK_CAMERA if first else MASK_BOUNCE
-        splat, st_next, _q = _bounce_core(scene, tables, state, tri_mask,
-                                          shadow_mask, mask_bit=mbit)
+        with span("bounce"):
+            splat, st_next, _q = _bounce_core(scene, tables, state, tri_mask,
+                                              shadow_mask, mask_bit=mbit)
         return st_next, accum + splat
 
     if differentiable:
         for i in range(min(scene.technique.max_depth, 64)):
-            state, accum = bounce(state, accum, i == 0)
+            with span("wave", _WIDE):
+                state, accum = bounce(state, accum, i == 0)
         return accum
 
     tail_cap = 2048
     first = True
     if n <= tail_cap * 2:
-        while bool(state["alive"].any()):
-            state, accum = bounce(state, accum, first)
+        while host_item(state["alive"].any()):
+            with span("wave", _WIDE):
+                state, accum = bounce(state, accum, first)
             first = False
         return accum
 
     # tail cascade: full-width waves while busy, then compact the survivors
     # into a narrow wave and add their radiance back per lane
-    while int(state["alive"].sum()) > tail_cap:
-        state, accum = bounce(state, accum, first)
+    while host_item(state["alive"].sum()) > tail_cap:
+        with span("wave", _WIDE):
+            state, accum = bounce(state, accum, first)
         first = False
     order, tail = _compact(state, tail_cap)
     tail_accum = torch.zeros((tail_cap, 3), dtype=torch.float32, device=dev)
-    while bool(tail["alive"].any()):
-        tail, tail_accum = bounce(tail, tail_accum, first)
+    while host_item(tail["alive"].any()):
+        with span("wave", _TAIL):
+            tail, tail_accum = bounce(tail, tail_accum, first)
         first = False
     # in place: `order` holds distinct lanes
     accum.index_add_(0, order, tail_accum)
@@ -898,9 +915,10 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
 
     def splat_into_fb(st, splat):
         # in place: fb is the largest buffer of the step
-        fb.index_add_(0, st["pixel"],
-                      torch.where(st["alive"][..., None], splat,
-                                  torch.zeros_like(splat)))
+        with span("accum"):
+            fb.index_add_(0, st["pixel"],
+                          torch.where(st["alive"][..., None], splat,
+                                      torch.zeros_like(splat)))
 
     def body(st, next_work):
         # ---- regenerate: dead lanes pull the next work items
@@ -916,8 +934,9 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
             gs = wid_c // npix
         else:
             gx, gy, gs = work_x[wid_c], work_y[wid_c], work_sample[wid_c]
-        seed_n, counter_n, org_n, dir_n, tmin_n, tmax_n = _emit_camera(
-            scene, gx, gy, gs, iteration, frame, user_seed, tables, spi)
+        with span("emit"):
+            seed_n, counter_n, org_n, dir_n, tmin_n, tmax_n = _emit_camera(
+                scene, gx, gy, gs, iteration, frame, user_seed, tables, spi)
 
         sel = take[..., None]
         st = dict(st)
@@ -946,8 +965,9 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
         n_take = _count(take)
 
         # ---- one bounce for the whole wave
-        splat, st_next, q = _bounce_core(scene, tables, st, prim_mask,
-                                         shadow_mask)
+        with span("bounce"):
+            splat, st_next, q = _bounce_core(scene, tables, st, prim_mask,
+                                             shadow_mask)
         splat_into_fb(st, splat)
         st_next["pixel"] = st["pixel"]
         inc = torch.cat([torch.stack([one, _count(st["alive"]), zero,
@@ -964,26 +984,29 @@ def render_wavefront(scene, tables, iteration, frame, user_seed, capacity,
     wide_only = tail_cap >= c
     while True:
         if next_work >= w_total:
-            n_alive = int(state["alive"].sum())       # host sync
+            n_alive = host_item(state["alive"].sum())
             if n_alive == 0 or (not wide_only and n_alive <= tail_cap):
                 break
-        state, inc, n_take = body(state, next_work)
-        stats = stats + inc
-        if next_work < w_total:
-            next_work += int(n_take)                  # host sync
+        with span("wave", _WIDE):
+            state, inc, n_take = body(state, next_work)
+            stats = stats + inc
+            if next_work < w_total:
+                next_work += int(host_item(n_take))
     if wide_only:
         return fb_out(), stats
 
     # ---- compact survivors into the narrow tail wave (alive lanes first)
     _, tail = _compact(state, tail_cap, extra=("pixel",))
-    while bool(tail["alive"].any()):                  # host sync
-        splat, st_next, q = _bounce_core(scene, tables, tail, prim_mask,
-                                         shadow_mask)
-        splat_into_fb(tail, splat)
-        st_next["pixel"] = tail["pixel"]
-        stats = stats + torch.cat(
-            [torch.stack([zero, _count(tail["alive"]), one, zero]), q])
-        tail = st_next
+    while host_item(tail["alive"].any()):
+        with span("wave", _TAIL):
+            with span("bounce"):
+                splat, st_next, q = _bounce_core(scene, tables, tail,
+                                                 prim_mask, shadow_mask)
+            splat_into_fb(tail, splat)
+            st_next["pixel"] = tail["pixel"]
+            stats = stats + torch.cat(
+                [torch.stack([zero, _count(tail["alive"]), one, zero]), q])
+            tail = st_next
     return fb_out(), stats
 
 

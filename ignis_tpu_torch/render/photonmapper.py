@@ -32,7 +32,7 @@ import torch
 from ignis_tpu_torch.bsdf import bsdf_eval, bsdf_sample, prepare_surface
 from ignis_tpu_torch.core import rng
 from ignis_tpu_torch.core.vec import (
-    FLT_EPS, FLT_MAX, dot, safe_div, to_int32,
+    FLT_EPS, FLT_MAX, device_const, dot, safe_div, to_int32,
 )
 from ignis_tpu_torch.light import env_emission_and_pdf, select_light
 from ignis_tpu_torch.light.emission import sample_light_emission
@@ -203,8 +203,7 @@ def _gather_chunk(scene, tables, grid, surf, mat_type, out_dir, radius,
     for dz in range(3):
         for dy in range(3):
             for dx in range(3):
-                idx = lo + torch.tensor([dx, dy, dz], dtype=torch.int32,
-                                        device=dev)
+                idx = lo + device_const((dx, dy, dz), torch.int32, dev)
                 ok_cell = torch.all(idx < GRID, dim=-1) & active
                 cell = _cell_id(torch.clamp(idx, 0, GRID - 1)).contiguous()
                 start = torch.searchsorted(csort, cell)

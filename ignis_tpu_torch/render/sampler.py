@@ -17,6 +17,7 @@ import torch
 
 from ignis_tpu_torch.core import rng
 from ignis_tpu_torch.core.rng import M32, mul_u32
+from ignis_tpu_torch.utils.stats import host_item
 
 _F1 = 0xA511E9B3
 _F2 = 0x63D83595
@@ -74,7 +75,7 @@ def _permute_element(i, l, seed):
         while True:
             cur = torch.where(pending, _permute_round(cur, seed, w), cur)
             pending = pending & (cur >= l)
-            if not bool(pending.any()):
+            if not host_item(pending.any()):
                 break
     return ((cur + seed) & M32) % l
 

@@ -14,13 +14,32 @@ Use:
         ...
     stats.add("CameraRayCount", n)
     print(stats.dump())
+
+Tracing inside a step: `span(name)` marks a layer boundary of the hot path
+(`step`, `wave`, `emit`, `bounce`, `traverse`, `accum`, `train.*`);
+`host_item(t)` is the one way the hot path reads a device value back, and
+`host_tensor` the one way it copies host values to the device (each such
+blocking operation counted by `host_syncs()`, and a `sync` span).  A span
+records only while a `torch.profiler` runs: otherwise it costs one check
+and allocates nothing.  Its record holds `time.time_ns()` stamps, the clock of
+the profiler's own events, so it lines up with a device trace:
+
+    with torch.profiler.profile():
+        rt.step()
+    records = read_spans()     # dicts: name, start_ns, end_ns, parent, ...
+
+The section timers above stay on always: set-up runs before any profiler.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+import torch
 
 
 @dataclass
@@ -94,3 +113,153 @@ class Statistics:
             else:
                 lines.append(f"    {name}: {v}")
         return "\n".join(lines)
+
+
+# ----------------------------------------------------------------- tracing
+
+SPAN_CAP = 1 << 17          # records kept; the oldest go first
+_profiler_enabled = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+class _SpanLog:
+    """The records of the spans opened while a profiler ran, oldest first,
+    and the stack of those still open."""
+
+    def __init__(self, cap=SPAN_CAP):
+        self.records = deque(maxlen=cap)
+        self.open = []
+        self.next_index = 0
+
+    def clear(self):
+        self.records.clear()
+        self.open.clear()
+
+
+_LOG = _SpanLog()
+_host_syncs = 0
+
+
+class _Span:
+    """One span's record; its own context manager.  `index` numbers every
+    span of the process; `parent` is the index of the span open around it
+    (None at the top); `request` is given, or else its parent's."""
+
+    __slots__ = ("index", "name", "start_ns", "end_ns", "parent", "request",
+                 "attrs", "device", "events")
+
+    def __init__(self, name, attrs=None, request=None, device=None):
+        self.name = name
+        self.attrs = attrs
+        self.request = request
+        self.device = device
+        self.events = None
+        self.end_ns = None
+
+    def __enter__(self):
+        log = _LOG
+        up = log.open[-1] if log.open else None
+        self.parent = None if up is None else up.index
+        if self.request is None and up is not None:
+            self.request = up.request
+        self.index = log.next_index
+        log.next_index += 1
+        log.records.append(self)
+        log.open.append(self)
+        if self.device is not None and self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(self.device))
+            self.events = (start,)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        if self.events is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            self.events = self.events + (end,)
+        if _LOG.open and _LOG.open[-1] is self:
+            _LOG.open.pop()
+        return False
+
+
+def span(name, attrs=None, *, request=None, device=None):
+    """A context manager marking one layer's work on the host, recorded
+    while a `torch.profiler` runs and a no-op otherwise.  `attrs` (a dict,
+    kept by reference: pass a constant on a hot path) is stored with the
+    record; `request` ties the span to one request (a step's iteration),
+    and its children inherit it.  With `device` a CUDA device, CUDA events
+    on its current stream mark the span's ends too, read as device
+    milliseconds by `read_spans`."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name, attrs, request, device)
+
+
+def _blocking(op):
+    """`op()`, an operation that waits for the device: counted in
+    `host_syncs()` always, and a `sync` span under a profiler."""
+    global _host_syncs
+    _host_syncs += 1
+    if not _profiler_enabled():
+        return op()
+    with _Span("sync"):
+        return op()
+
+
+def host_item(t):
+    """`t.item()`: a blocking read of a device value by the host."""
+    return _blocking(t.item)
+
+
+def host_tensor(data, dtype, device):
+    """`torch.tensor(data, dtype=dtype, device=device)`: host values copied
+    to a CUDA device by a blocking copy, which waits for the device's queue
+    (counted as `host_item` is; a tensor made on the CPU is not)."""
+    if torch.device(device).type != "cuda":
+        return torch.tensor(data, dtype=dtype, device=device)
+    return _blocking(lambda: torch.tensor(data, dtype=dtype, device=device))
+
+
+def host_syncs():
+    """The hot path's blocking reads of device values and blocking copies
+    to the device (`host_item`, `host_tensor`) so far in this process."""
+    return _host_syncs
+
+
+def read_spans():
+    """The span log as dicts, oldest first: `index`, `name`, `start_ns`,
+    `end_ns` (None while open), `parent`, `request`, `attrs` and
+    `device_ms` (the device time between the span's CUDA events, None
+    without them).  Synchronises once where some span has events."""
+    recs = list(_LOG.records)
+    if any(r.events is not None for r in recs):
+        torch.cuda.synchronize()
+    return [dict(index=r.index, name=r.name, start_ns=r.start_ns,
+                 end_ns=r.end_ns, parent=r.parent, request=r.request,
+                 attrs=r.attrs,
+                 device_ms=(r.events[0].elapsed_time(r.events[1])
+                            if r.events is not None and len(r.events) == 2
+                            else None))
+            for r in recs]
+
+
+def clear_spans():
+    """Forget every record (the counter of host syncs stays)."""
+    _LOG.clear()
+
+
+def self_ns(record, records):
+    """A span's duration less the part of it that its children cover."""
+    kids = sorted((max(r["start_ns"], record["start_ns"]),
+                   min(r["end_ns"], record["end_ns"]))
+                  for r in records if r["parent"] == record["index"]
+                  and r["end_ns"] is not None)
+    covered, reach = 0, record["start_ns"]
+    for s, e in kids:
+        s = max(s, reach)
+        if e > s:
+            covered += e - s
+            reach = e
+    return record["end_ns"] - record["start_ns"] - covered
