@@ -20,8 +20,14 @@ sweep; all four must give the plain versions' bits.  Every kernel is also
 held to its plain version, bit for bit, on rays with subnormal, infinite and
 NaN components that start on box faces (the JAX package's float rules,
 `ops.ref_float`; for the Baldwin-Weber kernel also the faces of its cluster
-tree's nodes).  Then the second path: the materials scene (rough conductor
-and dielectric, plastic, phong, principled, a two-lobe blend and a constant
+tree's nodes).  The backward of the parameter tables' row gathers
+(`core.dgather.gather_rows_backward`, `csrc/row_scatter.cu`) is held to the
+float64 sum and to its plain version within the error bound of its serial
+additions, and to itself bit for bit, and timed beside its plain version
+and the library's `index_put_(accumulate=True)`, at the `cbox.inverse`
+benchmark cell's shapes (`row_scatter`); the gradient phases count its calls
+a call.  Then the second path: the materials scene (rough conductor and
+dielectric, plastic, phong, principled, a two-lobe blend and a constant
 normal modifier) through `Runtime.step`; the gradient of the demo's summed
 differentiable render with respect to `mat_colors` at 2^19 lanes
 (`trace_wave(differentiable=True)`, held to the gradient taken with the
@@ -111,6 +117,13 @@ MEAN_REL = 0.02           # kernel render vs plain render, image mean
 FWDBWD_LANES = 1 << 19    # lanes of the gradient phase (`phase_fwdbwd`'s)
 GRAD_REL = 1e-4           # its gradient, kernels vs plain traversal
 TRAIN_STEPS, TRAIN_LR = 5, 0.5
+# the row scatter's checks: the cbox.inverse benchmark cell's lanes, (rows,
+# columns) of its tables (mat_colors (4, 4, 3), light_data (1, 32)) and of a
+# table cut into row slabs, and the share of the lanes in each row
+SCATTER_LANES = 1 << 18
+SCATTER_CASES = {"mat_colors": (4, 12, (0.7, 0.1, 0.1, 0.1)),
+                 "light_data": (1, 32, (1.0,)),
+                 "row_slabs": (300, 12, None)}
 TEXTURED_LANES = 1 << 18  # lanes of the textured scene's gradient
 DAYLIGHT_LANES = 1 << 18  # lanes of the daylight room's gradient
 LIGHT_FILM = 128          # film of the lights' kernel-vs-plain renders
@@ -780,6 +793,68 @@ def check_mt_extras(mt, rt, recs, dev):
              f"(max abs err {recs['mt_closest']['max_abs_err']})")
 
 
+def row_scatter_phase(dev):
+    """`gather_rows_backward` (the kernel) at `SCATTER_LANES` lanes for each
+    of `SCATTER_CASES`, int32 indices as the render passes them: every cell
+    within `depth` 2^-24 sum |terms| of the float64 sum and of the plain
+    version, where `depth` is the most additions on the way of one term to
+    its cell in the kernel's plan (its lanes in one thread, the lane groups,
+    the blocks of one reduce group, the reduce groups); two calls bit-equal;
+    `ms` (CUDA events), `device_ms` (graph replay), `bound_ms` (the gradient
+    rows and indices read, the table written), `plain_ms` (`index_add_`) and
+    `library_ms` (`index_put_(accumulate=True)`, autograd's backward of
+    `table[idx]`: the yardstick, which the port never calls)."""
+    from ignis_tpu_torch.core import dgather as dg
+    recs = {}
+    rng = np.random.default_rng(17)
+    n = SCATTER_LANES
+    for name, (m, k, share) in SCATTER_CASES.items():
+        idx_np = rng.choice(m, n, p=share) if share else rng.integers(0, m, n)
+        idx = torch.from_numpy(idx_np.astype(np.int32)).to(dev)
+        idx64 = idx.long()
+        g = torch.from_numpy(rng.standard_normal((n, k), np.float32)).to(dev)
+        launches = dg.gather_rows_backward.launches
+        got = dg.gather_rows_backward(g, idx, m)
+        again = dg.gather_rows_backward(g, idx, m)
+        torch.cuda.synchronize()
+        if dg.gather_rows_backward.launches != launches + 2:
+            fail(f"row_scatter/{name}: the wrapper did not launch the kernel")
+        if not torch.equal(got, again):
+            fail(f"row_scatter/{name}: two calls differ")
+        g64 = g.double()
+        exact = torch.zeros((m, k), dtype=torch.float64, device=dev)
+        exact.index_add_(0, idx64, g64)
+        absum = torch.zeros_like(exact).index_add_(0, idx64, g64.abs())
+        plan = dg._plan(n, m, k, dg._sms(dev.index))
+        depth = (-(-plan.lanes_per_block // plan.groups) + plan.groups
+                 + -(-plan.blocks // 32) + 32)
+        bound = depth * 2.0 ** -24 * absum
+        plain = dg.gather_rows_backward_plain(g, idx, m)
+        for other, ref in (("the float64 sum", exact),
+                           ("the plain version", plain.double())):
+            err = (got.double() - ref).abs()
+            if not (err <= bound).all():
+                fail(f"row_scatter/{name}: off {other} by "
+                     f"{float((err - bound).max())} beyond the bound of "
+                     f"{depth} serial additions")
+        recs[name] = dict(
+            lanes=n, rows=m, cols=k, plan=plan._asdict(), depth=depth,
+            max_abs_err_vs_float64=float((got.double() - exact).abs().max()),
+            max_abs_diff_vs_plain=float((got - plain).abs().max()),
+            max_bound=float(bound.max()),
+            ms=round(cuda_ms(lambda: dg.gather_rows_backward(g, idx, m), 20),
+                     5),
+            device_ms=round(graph_ms(
+                lambda: dg.gather_rows_backward(g, idx, m), 20), 5),
+            plain_ms=round(cuda_ms(
+                lambda: dg.gather_rows_backward_plain(g, idx, m), 20), 5),
+            library_ms=round(cuda_ms(
+                lambda: torch.zeros((m, k), device=dev).index_put_(
+                    (idx64,), g, accumulate=True), 5), 5),
+            **_bound(n * (4 * k + idx.element_size()) + 4 * m * k, n * k))
+    return recs
+
+
 def _bound(nbytes, ops):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
     return dict(bound_ms=max(tb, to),
@@ -980,11 +1055,13 @@ def fwdbwd(path, rt, n, wrappers, plain, keys, reps):
                  f"{int((~np.isfinite(v)).sum())} non-finite entries or is "
                  "all zero")
     torch.cuda.reset_peak_memory_stats()
+    scatters = row_scatter_counts()
     ta = time.perf_counter()
     for _ in range(reps):
         grad_of_summed_render(rt, x, y, keys)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - ta) / reps
+    scatters = row_scatter_counts(scatters, reps, path)
     peak = torch.cuda.max_memory_allocated()
     launches = {f.__name__: f.launches for f in wrappers}
     with plain():
@@ -1008,7 +1085,8 @@ def fwdbwd(path, rt, n, wrappers, plain, keys, reps):
                 grad_bit_equal_to_plain={k: bool(torch.equal(g[k], gp[k]))
                                          for k in keys},
                 render_lanes_bit_equal_to_plain=lanes_equal,
-                launches_per_call=per_call, launches=launches)
+                launches_per_call=per_call, launches=launches,
+                row_scatters_per_call=scatters)
 
 
 def perturbed_tables(rt):
@@ -1052,12 +1130,14 @@ def train(rt, steps, lr, wrappers, bw):
     reset_counts(wrappers)
     torch.cuda.reset_peak_memory_stats()
     losses, secs = [], []
+    scatters = row_scatter_counts()
     for _ in range(steps):
         ta = time.perf_counter()
         loss, tables = train_step(rt.scene, tables, x, y, 0, 0, 0, 0, target,
                                   param_keys=keys, lr=lr)
         losses.append(float(loss))                  # a synchronise
         secs.append(round(time.perf_counter() - ta, 4))
+    scatters = row_scatter_counts(scatters, steps, "train")
     launches = {f.__name__: f.launches for f in wrappers}
     depth = min(rt.scene.technique.max_depth, 64)
     if any(launches[k] != depth * steps for k in PATH_KERNELS["train"]):
@@ -1075,7 +1155,25 @@ def train(rt, steps, lr, wrappers, bw):
                 step_seconds=secs,
                 peak_memory_gb=round(torch.cuda.max_memory_allocated() / 1e9,
                                      3),
-                launches=launches)
+                launches=launches, row_scatters_per_step=scatters)
+
+
+def row_scatter_counts(before=None, calls=1, path=None):
+    """The row scatters so far (`utils.stats.row_scatters()`, every
+    backward of a parameter table's `gather_rows`) and the kernel launches
+    among them (`gather_rows_backward.launches`); given the counts `before`
+    `calls` calls of `path`, those made a call, which must all have taken
+    the kernel."""
+    from ignis_tpu_torch.core.dgather import gather_rows_backward
+    from ignis_tpu_torch.utils.stats import row_scatters
+    now = (row_scatters(), gather_rows_backward.launches)
+    if before is None:
+        return now
+    scatters, launches = (a - b for a, b in zip(now, before))
+    if launches != scatters:
+        fail(f"{path}: {scatters} row scatters over {calls} calls, "
+             f"{launches} of them on the kernel")
+    return scatters / calls
 
 
 def profiled_step(rt, spi):
@@ -2776,6 +2874,11 @@ def run(native):
     emit("kernels", t0, tolerance=dict(t_rel=T_REL, uv_abs=UV_ABS),
          kernels=recs)
 
+    # ---- 3b. the backward of the parameter tables' row gathers
+    t0 = time.perf_counter()
+    scatter = row_scatter_phase(dev)
+    emit("row_scatter", t0, cases=scatter)
+
     # ---- 4. demo: the Baldwin-Weber path
     t0 = time.perf_counter()
     runs = {}
@@ -2963,6 +3066,17 @@ def run(native):
                                  "second_bound_ms", "second_bound_by",
                                  "second_bound_dense_ms")
                if k in r}))
+    scatters = {"fwdbwd": runs["fwdbwd"]["row_scatters_per_call"],
+                "train": runs["train"]["row_scatters_per_step"]}
+    if min(scatters.values()) <= 0:
+        fail(f"row_scatter: {scatters} a call on the gradient paths")
+    kernels.append(dict(
+        name="row_scatter", route="cuda",
+        source="ignis_tpu_torch/csrc/row_scatter.cu",
+        replaces="none: the custom VJP of ignis_tpu/core/dgather.py (_bwd)",
+        launches_per_call=scatters,
+        backward="it is the backward of core.dgather.gather_rows",
+        cases=scatter))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

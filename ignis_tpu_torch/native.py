@@ -31,7 +31,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("bw_intersect.cu", "packet_bvh.cu", "tlas.cu", "mt_intersect.cu")
+SOURCES = ("bw_intersect.cu", "packet_bvh.cu", "tlas.cu", "mt_intersect.cu",
+           "row_scatter.cu")
 # -fmad=false: the kernels repeat their plain PyTorch versions' arithmetic
 # term by term; contraction into fused multiply-adds would change last bits.
 # -Xptxas -v: registers, shared memory and spills of each kernel go into the
@@ -141,6 +142,8 @@ def library() -> ctypes.CDLL:
         lib.ignis_tlas_stack_entries.restype = _I
         lib.ignis_mt_intersect.argtypes = MT_ARGTYPES
         lib.ignis_mt_intersect.restype = _I
+        lib.ignis_row_scatter.argtypes = [_P, _P] + [_I] * 9 + [_P, _P, _P]
+        lib.ignis_row_scatter.restype = _I
         _lib = lib
     return _lib
 

@@ -19,7 +19,9 @@ Tracing inside a step: `span(name)` marks a layer boundary of the hot path
 (`step`, `wave`, `emit`, `bounce`, `traverse`, `accum`, `train.*`);
 `host_item(t)` is the one way the hot path reads a device value back, and
 `host_tensor` the one way it copies host values to the device (each such
-blocking operation counted by `host_syncs()`, and a `sync` span).  A span
+blocking operation counted by `host_syncs()`, and a `sync` span);
+`row_scatters()` counts the backward calls of the parameter tables' row
+gathers (`core.dgather`).  A span
 records only while a `torch.profiler` runs: otherwise it costs one check
 and allocates nothing.  Its record holds `time.time_ns()` stamps, the clock of
 the profiler's own events, so it lines up with a device trace:
@@ -138,6 +140,7 @@ class _SpanLog:
 
 _LOG = _SpanLog()
 _host_syncs = 0
+_row_scatters = 0
 
 
 class _Span:
@@ -226,6 +229,20 @@ def host_syncs():
     """The hot path's blocking reads of device values and blocking copies
     to the device (`host_item`, `host_tensor`) so far in this process."""
     return _host_syncs
+
+
+def row_scatters():
+    """The backward calls of `core.dgather.gather_rows` so far in this
+    process, on either device: each sums a gathered parameter table's
+    gradient rows into the table (`gather_rows_backward.launches` counts
+    those that took the CUDA kernel)."""
+    return _row_scatters
+
+
+def count_row_scatter():
+    """+1 on `row_scatters()`: one backward of `core.dgather.gather_rows`."""
+    global _row_scatters
+    _row_scatters += 1
 
 
 def read_spans():
