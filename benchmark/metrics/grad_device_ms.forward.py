@@ -1,6 +1,10 @@
-"""Device milliseconds a train step between the CUDA events that open and
-close the program's `train.forward` span (the differentiable render and
-the loss), over the traced window's steps."""
+"""Device milliseconds a train step busy with the operations launched
+inside the program's `train.forward` spans (the differentiable render
+and the loss), wherever they ran on the device: the union of those
+operations' intervals, each linked to the span by the host start of the
+call that launched it, over the traced window's steps.  Not the interval
+between the span's CUDA events, which holds the device's wait for the
+host's launches."""
 
 from benchmark import spans
 
@@ -9,5 +13,5 @@ def read(run):
     recs = spans.of_run(run)
     if recs is None or not run.trace_steps:
         return None
-    ms = spans.device_ms(recs, "train.forward")
-    return None if ms is None else ms / run.trace_steps
+    s = spans.launched_busy_s(run.trace, recs, "train.forward")
+    return None if s is None else 1e3 * s / run.trace_steps

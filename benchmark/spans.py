@@ -9,7 +9,7 @@ program keeps none."""
 
 from __future__ import annotations
 
-from benchmark.trace import TOP, idle_gaps
+from benchmark.trace import TOP, idle_gaps, launched_in, merged
 
 OUTSIDE = "outside"          # a gap's label where no program span is open
 
@@ -77,12 +77,17 @@ def count(records, name):
     return sum(r["name"] == name for r in records)
 
 
-def device_ms(records, name):
-    """The device milliseconds of the spans called `name`, summed; None
-    where none of them holds a device interval."""
-    got = [r["device_ms"] for r in records
-           if r["name"] == name and r["device_ms"] is not None]
-    return sum(got) if got else None
+def launched_busy_s(trace, records, name):
+    """Device seconds busy with the operations launched inside the spans
+    called `name`: the union of those operations' intervals in the window,
+    which may lie after a span's host end.  None where no device operation
+    links to such a span (no span, or a trace without correlation ids)."""
+    ops = launched_in(trace, [(r["start_ns"] * 1e-9, r["end_ns"] * 1e-9)
+                              for r in records if r["name"] == name])
+    if not ops:
+        return None
+    return sum(e - s for s, e in merged([(op[1], op[2]) for op in ops],
+                                        trace.start, trace.end))
 
 
 def innermost(records, times_ns):

@@ -100,7 +100,9 @@ def test_the_readers_arithmetic(monkeypatch):
     assert got["host_ms_per_step.sync"] == pytest.approx(200.0)
 
 
-def test_the_train_readers_sum_the_device_intervals(monkeypatch):
+def _train_log():
+    """Two train steps in a window [0, 10] s: forward [t, t + 1], backward
+    [t + 1, t + 2], update [t + 2, t + 2.1] for t = 1 and 4."""
     log = []
     for i, t in enumerate((1.0, 4.0)):
         log += [rec(3 * i, "train.forward", t, t + 1, device_ms=30.0),
@@ -108,12 +110,146 @@ def test_the_train_readers_sum_the_device_intervals(monkeypatch):
                     device_ms=1400.0),
                 rec(3 * i + 2, "train.update", t + 2, t + 2.1,
                     device_ms=0.5)]
-    run = _run(log, monkeypatch)
-    assert metric_reader("grad_device_ms.forward").read(run) == 30.0
-    assert metric_reader("grad_device_ms.backward").read(run) == 1400.0
+    return log
+
+
+def _launched(trace, *ops):
+    """Device operations (name, launch_s, start_s, end_s) on `trace`, each
+    linked to its launch by a correlation id of its own."""
+    for name, launch, s, e in ops:
+        corr = 100 + len(trace.launches)
+        trace.launches[corr] = launch
+        trace.device.append(tr.Op(name, s, e, corr))
+    return trace
+
+
+def _reader_ms(part, monkeypatch, *ops):
+    run = _run(_train_log(), monkeypatch)
+    _launched(run.trace, *ops)
+    return metric_reader(f"grad_device_ms.{part}").read(run)
+
+
+def test_the_train_readers_sum_the_device_intervals(monkeypatch):
+    run = _run(_train_log(), monkeypatch)
+    # per step: forward launches 30 ms of kernels, backward 140 ms, the
+    # update 1 ms; the interval between a span's events plays no part
+    for t in (1.0, 4.0):
+        _launched(run.trace, ("fwd", t + 0.1, t + 0.1, t + 0.13),
+                  ("bwd", t + 1.2, t + 1.2, t + 1.3),
+                  ("bwd", t + 1.5, t + 1.5, t + 1.54),
+                  ("upd", t + 2.05, t + 2.05, t + 2.051))
+    assert metric_reader("grad_device_ms.forward").read(run) == \
+        pytest.approx(30.0)
+    assert metric_reader("grad_device_ms.backward").read(run) == \
+        pytest.approx(140.0)
     # spans without device intervals (a run on the CPU) read nothing
-    run = _run([dict(r, device_ms=None) for r in log], monkeypatch)
+    run = _run([dict(r, device_ms=None) for r in _train_log()], monkeypatch)
     assert metric_reader("grad_device_ms.backward").read(run) is None
+
+
+def test_a_kernel_launched_inside_the_span_counts_after_it_closed(
+        monkeypatch):
+    # launched at 2.9 s inside the first backward [2, 3], run at [3.5, 3.6]
+    assert _reader_ms("backward", monkeypatch,
+                      ("k", 2.9, 3.5, 3.6)) == pytest.approx(50.0)
+    # the same kernel is none of the forward's, though the forward holds
+    # no other: no operation links to a forward span
+    assert _reader_ms("forward", monkeypatch, ("k", 2.9, 3.5, 3.6)) is None
+
+
+def test_a_kernel_launched_before_the_span_opened_does_not_count(
+        monkeypatch):
+    # launched at 1.9 s in the forward, run inside the backward's interval
+    got = _reader_ms("backward", monkeypatch, ("early", 1.9, 2.2, 2.4),
+                     ("k", 2.5, 2.5, 2.6))
+    assert got == pytest.approx(50.0)
+    assert _reader_ms("forward", monkeypatch, ("early", 1.9, 2.2, 2.4),
+                      ("k", 2.5, 2.5, 2.6)) == pytest.approx(100.0)
+
+
+def test_two_overlapping_kernels_count_once(monkeypatch):
+    # [2.1, 2.3] and [2.2, 2.4] overlap: busy 0.3 s, not 0.4
+    got = _reader_ms("backward", monkeypatch, ("a", 2.05, 2.1, 2.3),
+                     ("b", 2.06, 2.2, 2.4))
+    assert got == pytest.approx(150.0)
+
+
+def test_a_trace_without_correlation_ids_reads_nothing(monkeypatch):
+    run = _run(_train_log(), monkeypatch)
+    # device operations as plain tuples, and as operations whose launch
+    # the trace does not hold
+    run.trace.device = [("k", 2.2, 2.4), tr.Op("k", 2.5, 2.6, 7),
+                        tr.Op("k", 2.7, 2.8)]
+    for part in ("forward", "backward"):
+        assert metric_reader(f"grad_device_ms.{part}").read(run) is None
+
+
+def test_from_profiler_on_the_cpu_has_no_device_operations():
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.time_ns() * 1e-9
+        torch.ones(64).add_(1).sum()
+        t1 = time.time_ns() * 1e-9
+    got = tr.from_profiler(prof, t0, t1)
+    assert isinstance(got, tr.Trace)
+    assert got.device == [] and got.launches == {}
+    assert any(name.startswith("aten::") for name, _, _ in got.host)
+    assert got.window_s == pytest.approx(t1 - t0)
+
+
+class _Sampler:
+    def __init__(self, launches):
+        self.launches = launches
+
+
+def _other_readings(trace):
+    """Every reading that the device trace gives but the train readers':
+    the readers, the breakdown and the roofline share."""
+    from benchmark.roofline import roofline_pct
+    run = Run(_Entry())
+    run.trace, run.trace_steps, run.wave_iters = trace, 2, 4
+    got = {name: metric_reader(name).read(run) for name in (
+        "launches_per_wave_iter", "grad_launches_per_step",
+        "device_idle_pct.render", "device_idle_pct.grad")}
+    got["busy_s"] = tr.busy_s(trace)
+    got["breakdown"] = tr.breakdown(trace)
+    got["gaps_by_span"] = spans.gaps_by_span(trace, _train_log())
+    got["bw_roofline"] = roofline_pct(
+        trace, _Sampler([{"b": 0.01}, None, {"b": 0.02}]), "bw_kernel", {},
+        lambda tables, launch: launch["b"])
+    return got
+
+
+def test_correlation_ids_leave_every_other_reading_as_it_was():
+    ops = [("bw_kernel", 1.05, 1.1, 1.3), ("fill", 1.2, 1.25, 1.5),
+           ("bw_kernel", 2.1, 2.2, 2.4), ("mul", 2.5, 2.9, 3.4),
+           ("bw_kernel", 4.1, 4.2, 4.3), ("mul", 5.5, 5.6, 5.9)]
+    host = [("aten::mul", 0.5, 1.0), ("aten::add", 1.5, 2.1),
+            ("MulBackward0", 3.4, 4.1), ("aten::where", 6.0, 9.0)]
+    linked = _launched(tr.Trace(start=0.0, end=10.0, host=list(host)), *ops)
+    # the same trace as the profiler's reduction gave it before it kept
+    # correlation ids: plain (name, start, end) tuples and no launches
+    plain = tr.Trace(start=0.0, end=10.0, host=list(host),
+                     device=[(n, s, e) for n, _, s, e in ops])
+    got = _other_readings(linked)
+    assert got == _other_readings(plain)
+    # and the numbers the reduction gave before (busy [1.1, 1.5],
+    # [2.2, 2.4], [2.9, 3.4], [4.2, 4.3], [5.6, 5.9])
+    assert got["busy_s"] == pytest.approx(1.5)
+    assert got["device_idle_pct.grad"] == pytest.approx(85.0)
+    assert got["grad_launches_per_step"] == 3.0
+    assert got["launches_per_wave_iter"] == 1.5
+    assert got["bw_roofline"] == pytest.approx(100.0 * 0.03 / 0.3)
+    assert dict(got["breakdown"]["device_ops"]) == pytest.approx(
+        {"bw_kernel": 0.5, "mul": 0.8, "fill": 0.25})
+    assert dict(got["breakdown"]["idle_gaps"]) == pytest.approx(
+        {"aten::where": 4.1, "host": 1.8, "aten::mul": 1.1,
+         "MulBackward0": 0.8, "aten::add": 0.7})
+    assert dict(got["gaps_by_span"]) == pytest.approx(
+        {spans.OUTSIDE: 6.0, "train.forward": 2.0, "train.backward": 0.5})
 
 
 NEW = ("host_syncs_per_step", "host_ms_per_step.wavefront",

@@ -3,7 +3,12 @@ metrics and the `breakdown` read: device operations as (name, start, end)
 intervals in seconds, host operations likewise, the union of the device
 intervals (busy time), the idle gaps between them and what the host was
 doing in each.  The arithmetic takes plain lists, so tests can give it a
-synthetic trace; `from_profiler` fills the lists from `torch.profiler`."""
+synthetic trace; `from_profiler` fills the lists from `torch.profiler`.
+
+A device operation from the profiler is an `Op`: it also keeps its kineto
+correlation id, and `Trace.launches` maps that id to the host start of the
+runtime call that launched the operation, so an operation can be traced
+back to the program span that launched it (`launched_in`)."""
 
 from __future__ import annotations
 
@@ -11,6 +16,20 @@ import bisect
 from dataclasses import dataclass, field
 
 TOP = 10
+# CUDA API calls (runtime `cuda*`, low-level `cu*`) that put an operation on
+# the device: the host end of a kineto correlation id
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemcpy", "cudaMemset",
+                "cuLaunchKernel", "cuMemcpy", "cuMemset")
+
+
+class Op(tuple):
+    """A device operation, (name, start_s, end_s), with the kineto
+    correlation id of the call that launched it (`corr`)."""
+
+    def __new__(cls, name, start, end, corr=None):
+        op = super().__new__(cls, (name, start, end))
+        op.corr = corr
+        return op
 
 
 @dataclass
@@ -19,6 +38,7 @@ class Trace:
     host: list = field(default_factory=list)     # (name, start_s, end_s)
     start: float = 0.0                           # the traced window
     end: float = 0.0
+    launches: dict = field(default_factory=dict)  # corr -> launch's start_s
 
     @property
     def window_s(self):
@@ -39,10 +59,31 @@ def from_profiler(prof, start_s, end_s):
         s = e.start_ns() * 1e-9
         rec = (e.name(), s, s + e.duration_ns() * 1e-9)
         if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
-            tr.device.append(rec)
-        elif not e.name().startswith(("cuda", "cudaLaunch")):
+            tr.device.append(Op(*rec, e.correlation_id()))
+            continue
+        if e.name().startswith(LAUNCH_CALLS) and e.correlation_id():
+            tr.launches[e.correlation_id()] = s
+        if not e.name().startswith(("cuda", "cudaLaunch")):
             tr.host.append(rec)
     return tr
+
+
+def launched_in(tr, intervals):
+    """The device operations whose launching call started inside one of
+    the host's (start_s, end_s) `intervals`, which do not overlap, wherever
+    on the device the operations ran.  Operations that no launch links to
+    are left out."""
+    spans = sorted(intervals)
+    starts = [s for s, _ in spans]
+    out = []
+    for op in tr.device:
+        t = tr.launches.get(getattr(op, "corr", None))
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= spans[i][1]:
+            out.append(op)
+    return out
 
 
 def merged(intervals, lo=None, hi=None):
