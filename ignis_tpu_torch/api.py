@@ -39,7 +39,9 @@ from ignis_tpu_torch.render.integrator import (
 from ignis_tpu_torch.scene.compile import (
     CompiledScene, check_slice, load_and_compile,
 )
-from ignis_tpu_torch.utils.stats import Statistics, host_syncs, span
+from ignis_tpu_torch.utils.stats import (
+    MEDIUM_COUNTS, Statistics, grid_lookups, host_syncs, medium_counts, span,
+)
 
 _DEFAULT_TILE = 1 << 16
 # the techniques that trace paths from the lights, by every name the
@@ -241,6 +243,10 @@ class Runtime:
         self._samples = 0
         self._dev_stats = torch.zeros(9, dtype=torch.float32, device=device)
         self._dev_stats_capacity = 0
+        # the media's events and ratio-tracker flights, added up on the
+        # device by the steps (`utils.stats.count_medium`)
+        self._medium_stats = torch.zeros(len(MEDIUM_COUNTS),
+                                         dtype=torch.int64, device=device)
         self._first_step_done = False
         # the regenerating wavefront mixes camera and bounce rays in one
         # wave, so it needs both visibilities to agree per entity; else, and
@@ -321,12 +327,16 @@ class Runtime:
         """Render `spi` samples/pixel for this iteration and accumulate.
         Returns after the device has finished the step.  The host's blocking
         reads of device values in it are added to the `HostSyncs`
-        quantity."""
+        quantity, the heterogeneous media's grid lookups it issued to
+        `MediumLookups`."""
         t0 = time.perf_counter()
         with span("step", request=self.iteration):
-            syncs = host_syncs()
-            self._step_impl(spi)
+            syncs, lookups = host_syncs(), grid_lookups()
+            with medium_counts(self._medium_stats):
+                self._step_impl(spi)
             self.stats.add("HostSyncs", host_syncs() - syncs)
+            if grid_lookups() > lookups:
+                self.stats.add("MediumLookups", grid_lookups() - lookups)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -434,7 +444,14 @@ class Runtime:
 
     def dumpStats(self) -> str:
         """Section timers and quantities, plus the wavefront's occupancy and
-        ray counters (none when only the per-sample driver ran)."""
+        ray counters (none when only the per-sample driver ran) and, under
+        `volpath`, the media's null, scatter and absorption events and
+        ratio-tracker flights (`MediumNullEvents`, `MediumScatters`,
+        `MediumAbsorbs`, `RatioFlights`)."""
+        if self.scene.technique.type == "volpath":
+            for name, v in zip(MEDIUM_COUNTS,
+                               self._medium_stats.cpu().tolist()):
+                self.stats.set(name, int(v))
         ds = self._dev_stats.cpu().numpy()
         if ds[0] > 0:
             cap = max(self._dev_stats_capacity, 1)

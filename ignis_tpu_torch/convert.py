@@ -41,8 +41,11 @@ def tables_from_numpy(tables, device):
         elif a.dtype == np.float64:
             a = a.astype(np.float32)
         # a copy: the tables are written in place (setParameter) and must
-        # not alias the compiled scene's arrays
-        out[k] = torch.from_numpy(np.array(a, order="C")).to(device)
+        # not alias the compiled scene's arrays; one copy only, the move to
+        # a CUDA device's (a medium's grid may take gigabytes)
+        if not (a.flags.c_contiguous and a.flags.writeable):
+            a = np.array(a, order="C")
+        out[k] = torch.from_numpy(a).to(device, copy=True)
     return out
 
 

@@ -22,7 +22,6 @@ File layout parsed here:
 from __future__ import annotations
 
 import struct
-from pathlib import Path
 
 import numpy as np
 
@@ -37,9 +36,11 @@ assert _FILE_META.size == 176
 _GRID_TYPE_FLOAT = 1
 _LEAF_SIZE = 2144
 _LEAF_VALUES_OFF = 96
+# leaves the loader copies out of the file at a time
+_LEAF_CHUNK = 1 << 15
 
 
-def _parse_file(raw: bytes):
+def _parse_file(raw):
     magic, version, grid_count, codec = _FILE_HEADER.unpack_from(raw, 0)
     if magic != NANOVDB_MAGIC:
         raise ValueError("Not a NanoVDB file (bad magic)")
@@ -57,7 +58,7 @@ def _parse_file(raw: bytes):
         name_size = m[21]
         node_count = m[22:26]
         tile_count = m[26:29]
-        name = raw[off:off + name_size].split(b"\0")[0].decode()
+        name = bytes(raw[off:off + name_size]).split(b"\0")[0].decode()
         off += name_size
         grids.append(dict(name=name, offset=off, grid_size=grid_size,
                           grid_type=grid_type, grid_class=grid_class,
@@ -69,8 +70,13 @@ def _parse_file(raw: bytes):
 
 def load_nvdb_grid(path, grid_name: str = "density") -> np.ndarray:
     """Read one named float grid from a .nvdb file as a dense (D,H,W)
-    float32 array over its index bbox (z-major to match voxel grids)."""
-    raw = Path(path).read_bytes()
+    float32 array over its index bbox (z-major to match voxel grids).
+
+    The file is mapped, not read whole: leaves are copied out of the map a
+    chunk at a time, and the leaves that lie inside the bbox on the 8-voxel
+    lattice are written into the dense array by block in one scatter a
+    chunk; the others (on its far faces, or off the lattice) one by one."""
+    raw = np.memmap(path, np.uint8, mode="r")
     grids = _parse_file(raw)
     grid = next((g for g in grids if g["name"] == grid_name), None)
     if grid is None:
@@ -100,25 +106,40 @@ def load_nvdb_grid(path, grid_name: str = "density") -> np.ndarray:
     bmax = np.asarray(ib[3:6], np.int64)
     dims = bmax - bmin + 1  # (x, y, z)
     dense = np.zeros((dims[2], dims[1], dims[0]), np.float32)
+    # the dense array as whole 8^3 blocks (bz, by, bx, z, y, x): a view
+    nb = dims[::-1] // 8
+    s = dense.strides
+    blocks = np.lib.stride_tricks.as_strided(
+        dense, tuple(nb) + (8, 8, 8), tuple(8 * np.asarray(s)) + s)
 
     leaves_at = tree + node_off[0]
-    if leaf_count:
-        buf = np.frombuffer(raw, np.uint8, count=leaf_count * _LEAF_SIZE,
-                            offset=leaves_at).reshape(leaf_count, _LEAF_SIZE)
-        origins = buf[:, :12].copy().view(np.int32).reshape(leaf_count, 3)
+    buf = raw[leaves_at:leaves_at + leaf_count * _LEAF_SIZE].reshape(
+        leaf_count, _LEAF_SIZE)
+    # one chunk's leaves, copied out of the map into a buffer kept for all
+    chunk = np.empty((min(leaf_count, _LEAF_CHUNK), _LEAF_SIZE), np.uint8)
+    for c0 in range(0, leaf_count, _LEAF_CHUNK):
+        k = min(_LEAF_CHUNK, leaf_count - c0)
+        np.copyto(chunk[:k], buf[c0:c0 + k])
+        origins = chunk[:k, :12].copy().view(np.int32).reshape(k, 3)
         origins = origins & ~7  # active-bbox min → leaf origin
-        masks = np.unpackbits(buf[:, 16:80], axis=1,
-                              bitorder="little").astype(bool)
-        values = buf[:, _LEAF_VALUES_OFF:_LEAF_VALUES_OFF + 2048].copy() \
-            .view(np.float32).reshape(leaf_count, 512)
-        values = np.where(masks, values, 0.0)
-        # NanoVDB leaf value order: v[((i&7)<<6)|((j&7)<<3)|(k&7)] → (x,y,z)
-        vals = values.reshape(leaf_count, 8, 8, 8)  # (x, y, z)
-        for li in range(leaf_count):
-            ox, oy, oz = origins[li] - bmin
+        inactive = ~np.unpackbits(chunk[:k, 16:80], axis=1,
+                                  bitorder="little").astype(bool)
+        values = chunk[:k, _LEAF_VALUES_OFF:_LEAF_VALUES_OFF + 2048] \
+            .view(np.float32)
+        np.copyto(values, np.float32(0.0), where=inactive)
+        # NanoVDB leaf value order: v[((i&7)<<6)|((j&7)<<3)|(k&7)] → (x,y,z);
+        # transposed → (z, y, x)
+        vals = values.reshape(k, 8, 8, 8).transpose(0, 3, 2, 1)
+        rel = origins - bmin
+        whole = ((rel % 8 == 0).all(1) & (rel >= 0).all(1)
+                 & (rel + 8 <= dims).all(1))
+        bi = rel[whole] // 8
+        blocks[bi[:, 2], bi[:, 1], bi[:, 0]] = vals[whole]
+        for li in np.nonzero(~whole)[0]:
+            ox, oy, oz = rel[li]
             xs, ys, zs = (slice(max(ox, 0), ox + 8), slice(max(oy, 0), oy + 8),
                           slice(max(oz, 0), oz + 8))
-            v = vals[li].transpose(2, 1, 0)  # → (z, y, x)
+            v = vals[li]
             v = v[max(-oz, 0):dims[2] - oz, max(-oy, 0):dims[1] - oy,
                   max(-ox, 0):dims[0] - ox]
             dense[zs, ys, xs][: v.shape[0], : v.shape[1], : v.shape[2]] = v
@@ -130,6 +151,47 @@ def load_nvdb_grid(path, grid_name: str = "density") -> np.ndarray:
 # .nvdb.  Emits a minimal single-root-tile tree in the layout parsed above.
 # ---------------------------------------------------------------------------
 
+def _leaf_records(dense):
+    """The leaf records (k, 2144) uint8 of the non-empty 8^3 blocks of a
+    dense (D, H, W) grid, in the order z, y, x of their origins (x
+    fastest), and the number of non-zero voxels; one slab of 8 z-slices
+    at a time."""
+    d, h, w = dense.shape
+    ny, nx = -(-h // 8), -(-w // 8)
+    bx, by = np.meshgrid(np.arange(nx, dtype=np.int32),
+                         np.arange(ny, dtype=np.int32))
+    xy = np.stack([bx.reshape(-1), by.reshape(-1)], axis=1) * 8
+    out, voxels = [], 0
+    slab = np.zeros((8, ny * 8, nx * 8), np.float32)
+    for oz in range(0, d, 8):
+        sub = dense[oz:oz + 8]
+        slab[...] = 0.0
+        slab[: sub.shape[0], :h, :w] = sub
+        # (by, bx, x, y, z): each block's values in the leaf's (x, y, z)
+        # order
+        vals = slab.reshape(8, ny, 8, nx, 8).transpose(1, 3, 4, 2, 0) \
+            .reshape(ny * nx, 512)
+        nonzero = vals != 0.0
+        keep = nonzero.any(axis=1)
+        vals, nonzero = vals[keep], nonzero[keep]
+        k = vals.shape[0]
+        voxels += int(nonzero.sum())
+        if not k:
+            continue
+        rec = np.zeros((k, _LEAF_SIZE), np.uint8)
+        org = np.empty((k, 3), "<i4")
+        org[:, 0:2], org[:, 2] = xy[keep], oz
+        rec[:, 0:12] = org.view(np.uint8)
+        rec[:, 12:15] = 7
+        rec[:, 16:80] = np.packbits(nonzero, axis=1, bitorder="little")
+        st = np.stack([vals.min(axis=1), vals.max(axis=1), vals.mean(axis=1),
+                       vals.std(axis=1)], axis=1).astype("<f4")
+        rec[:, 80:96] = st.view(np.uint8)
+        rec[:, _LEAF_VALUES_OFF:] = vals.astype("<f4").view(np.uint8)
+        out.append(rec)
+    return out, voxels
+
+
 def write_nvdb_grid(path, dense: np.ndarray, grid_name: str = "density"):
     """Write a dense (D,H,W) float32 array as a minimal uncompressed .nvdb
     float fog-volume grid (single upper/lower internal node chain)."""
@@ -138,31 +200,9 @@ def write_nvdb_grid(path, dense: np.ndarray, grid_name: str = "density"):
     if max(d, h, w) > 4096:
         raise ValueError("write_nvdb_grid supports grids up to 4096³")
 
-    # build leaves
-    leaves = []
-    for oz in range(0, d, 8):
-        for oy in range(0, h, 8):
-            for ox in range(0, w, 8):
-                block = np.zeros((8, 8, 8), np.float32)
-                sub = dense[oz:oz + 8, oy:oy + 8, ox:ox + 8]
-                block[: sub.shape[0], : sub.shape[1], : sub.shape[2]] = sub
-                if not np.any(block):
-                    continue
-                leaves.append((ox, oy, oz, block))
-
-    leaf_blob = bytearray()
-    for ox, oy, oz, block in leaves:
-        b = bytearray(_LEAF_SIZE)
-        struct.pack_into("<3i", b, 0, ox, oy, oz)
-        b[12:15] = bytes([7, 7, 7])
-        b[15] = 0
-        vals = block.transpose(2, 1, 0).reshape(512)  # (x,y,z) order
-        mask = np.packbits((vals != 0.0), bitorder="little")
-        b[16:80] = mask.tobytes()
-        struct.pack_into("<4f", b, 80, float(vals.min()), float(vals.max()),
-                         float(vals.mean()), float(vals.std()))
-        b[_LEAF_VALUES_OFF:_LEAF_VALUES_OFF + 2048] = vals.tobytes()
-        leaf_blob += b
+    leaves, voxels = _leaf_records(dense)
+    n_leaves = sum(r.shape[0] for r in leaves)
+    leaf_bytes = n_leaves * _LEAF_SIZE
 
     # Minimal root/internal blobs: the dense reader never dereferences
     # them, but sizes must be consistent.  Root: 64 B header + 1 tile 32 B.
@@ -176,9 +216,9 @@ def write_nvdb_grid(path, dense: np.ndarray, grid_name: str = "density"):
         64 + len(root_blob) + len(upper_blob),                    # lower off
         64 + len(root_blob),                                      # upper off
         64,                                                       # root off
-        len(leaves), 1, 1,   # node counts (leaf, lower, upper)
+        n_leaves, 1, 1,      # node counts (leaf, lower, upper)
         0, 0, 0,             # tile counts
-        int((dense != 0).sum()))
+        voxels)
     tree_blob = tree_hdr + bytes(64 - len(tree_hdr))
 
     grid_data = bytearray(672)
@@ -187,19 +227,19 @@ def write_nvdb_grid(path, dense: np.ndarray, grid_name: str = "density"):
     name_b = grid_name.encode()[:255]
     grid_data[40:40 + len(name_b)] = name_b
     grid_size = (len(grid_data) + len(tree_blob) + len(root_blob)
-                 + len(upper_blob) + len(lower_blob) + len(leaf_blob))
+                 + len(upper_blob) + len(lower_blob) + leaf_bytes)
     struct.pack_into("<Q", grid_data, 32, grid_size)
     struct.pack_into("<II", grid_data, 632, 1, _GRID_TYPE_FLOAT)  # fog, f32
 
     name_field = grid_name.encode() + b"\0"
     meta = _FILE_META.pack(
-        grid_size, grid_size, 0, int((dense != 0).sum()),
+        grid_size, grid_size, 0, voxels,
         _GRID_TYPE_FLOAT, 1,
         0.0, 0.0, 0.0, float(w), float(h), float(d),
         0, 0, 0, w - 1, h - 1, d - 1,
         1.0, 1.0, 1.0,
         len(name_field),
-        len(leaves), 1, 1, 1,
+        n_leaves, 1, 1, 1,
         0, 0, 0,
         0, 0, (32 << 21) | (3 << 10))
 
@@ -213,4 +253,5 @@ def write_nvdb_grid(path, dense: np.ndarray, grid_name: str = "density"):
         f.write(root_blob)
         f.write(upper_blob)
         f.write(lower_blob)
-        f.write(leaf_blob)
+        for rec in leaves:
+            f.write(rec.data)

@@ -33,6 +33,10 @@ from ignis_tpu_torch.core.warp import sample_uniform_sphere
 from ignis_tpu_torch.medium.volume import (
     apply_density_shader, grid_lookup, inside_unit, to_normalized_point,
 )
+from ignis_tpu_torch.utils.stats import MEDIUM_COUNTS, count_medium
+
+# the sink slot of the ratio tracker's flights (`utils.stats.count_medium`)
+_FLIGHTS = MEDIUM_COUNTS.index("RatioFlights")
 
 _EPS = float(np.float32(1e-3))
 
@@ -132,10 +136,12 @@ _RT_SALT = 0x9E3779B9
 
 
 def _hetero_ratio_transmittance(scene, tables, mi, med, p_start, p_end,
-                                seed, counter):
+                                seed, counter, lanes=None):
     """Ratio tracking: Tr ~ prod_k (1 - sigma_t(x_k) / mu) over majorant
     free flights, `_RT_FLIGHTS` of them, unrolled.  Draws from the salted
-    seed; the lane's own counter does not move."""
+    seed; the lane's own counter does not move.  Where `lanes` (a mask) is
+    given, the flights of those lanes that landed inside the segment are
+    counted (`utils.stats.count_medium`, `RatioFlights`)."""
     seg = p_end - p_start
     dist = length(seg)
     dirn = seg * safe_div(1.0, dist)[..., None]
@@ -146,10 +152,12 @@ def _hetero_ratio_transmittance(scene, tables, mi, med, p_start, p_end,
                     device=p_start.device)
     salted = seed ^ _RT_SALT
     c = counter
+    taken = []
     for _k in range(_RT_FLIGHTS):
         u, c = rng.next_f32(salted, c)
         t = t - torch.log(maximum(1.0 - u * 0.99999, 1e-30)) / mu
         on = t < dist
+        taken.append(on)
         pos = p_start + dirn * t[..., None]
         ss, sa, _ = _hetero_props_at(scene, tables, mi, med, pos)
         lref = to_normalized_point(tables, med["ref_entity"], pos)
@@ -157,6 +165,9 @@ def _hetero_ratio_transmittance(scene, tables, mi, med, p_start, p_end,
                           device_scalar(0.0, pos.device))
         f = clip(1.0 - ext / mu, 0.0, 1.0)
         tr = torch.where(on[..., None], tr * f, tr)
+    if lanes is not None:
+        count_medium(_FLIGHTS,
+                     lambda: (torch.stack(taken) & lanes).sum()[None])
     return tr
 
 
@@ -165,7 +176,9 @@ def medium_eval(scene, tables, medium_id, sigma_a, sigma_s, p_start, p_end,
     """Transmittance between two points: the closed form for homogeneous
     media; for heterogeneous ones the ratio tracker (`method:
     delta_tracking` with an RNG stream) or the quadrature (the default, and
-    the differentiable path)."""
+    the differentiable path).  The ratio tracker's flights that landed
+    inside their segment, on the lanes in its medium, are counted
+    (`utils.stats.count_medium`, `RatioFlights`)."""
     sigma_t = sigma_a + sigma_s
     dist = length(p_end - p_start)
     one = device_scalar(1.0, dist.device)
@@ -175,7 +188,8 @@ def medium_eval(scene, tables, medium_id, sigma_a, sigma_s, p_start, p_end,
         if (med.get("method") == "delta_tracking" and seed is not None
                 and counter is not None):
             h = _hetero_ratio_transmittance(scene, tables, mi, med,
-                                            p_start, p_end, seed, counter)
+                                            p_start, p_end, seed, counter,
+                                            lanes=medium_id == mi)
         else:
             h = _hetero_transmittance(scene, tables, mi, med, p_start,
                                       p_end)

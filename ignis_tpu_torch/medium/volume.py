@@ -25,6 +25,7 @@ import torch
 from ignis_tpu_torch.core.vec import (
     device_const, device_scalar, maximum, to_int32,
 )
+from ignis_tpu_torch.utils.stats import count_grid_lookup
 
 DENSITY_EPS = 1e-4
 
@@ -61,7 +62,9 @@ def write_voxel_grid_bin(path, sigma_a, sigma_s, emission):
 def grid_lookup(grid, lpos, interpolate=False):
     """Gather grid (D, H, W, C) at normalised local positions (n, 3) in
     [0, 1]^3: the nearest voxel, indices clamped to the grid, or trilinear
-    over voxel centers."""
+    over voxel centers.  Each call counts one in
+    `utils.stats.grid_lookups()`."""
+    count_grid_lookup()
     d, h, w = grid.shape[0], grid.shape[1], grid.shape[2]
     dims = device_const((float(w), float(h), float(d)), torch.float32,
                         lpos.device)

@@ -194,7 +194,11 @@ def sharded_train_step(scene, mesh, param_keys=("mat_colors", "light_data"),
     mean over all lanes and channels of (render - target)^2; each rank takes
     the gradient of its share of that mean and the gradients (and the loss)
     are summed over the ranks, so every rank makes the same update and the
-    parameters stay replicated.  The tables given are not changed."""
+    parameters stay replicated.  The tables given are not changed.  Under
+    a profiler the step's phases are spans, as `train_step`'s: the render
+    and its share of the loss `train.forward`, the gradient
+    `train.backward`, the `all_reduce`s of the loss and the gradients
+    `train.allreduce`, and the update `train.update`."""
 
     def step(tables, x, y, sample, iteration, frame, seed, target):
         n = x.shape[0]
@@ -203,20 +207,27 @@ def sharded_train_step(scene, mesh, param_keys=("mat_colors", "light_data"),
                   for k in param_keys}
         t = dict(tables)
         t.update(params)
-        color = trace_wave(scene, t, x[lo:hi], y[lo:hi], sample, iteration,
-                           frame, seed, differentiable=True)
-        part = torch.sum((color - target[lo:hi]) ** 2) / float(
-            n * color.shape[1])
-        grads = torch.autograd.grad(part, [params[k] for k in param_keys],
-                                    allow_unused=True)
+        dev = x.device
+        with span("train.forward", request=iteration, device=dev):
+            color = trace_wave(scene, t, x[lo:hi], y[lo:hi], sample,
+                               iteration, frame, seed, differentiable=True)
+            part = torch.sum((color - target[lo:hi]) ** 2) / float(
+                n * color.shape[1])
+        with span("train.backward", request=iteration, device=dev):
+            grads = torch.autograd.grad(part, [params[k] for k in param_keys],
+                                        allow_unused=True)
         loss = part.detach().clone()
-        dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+        # a table the render never read has a zero gradient
+        grads = [torch.zeros_like(params[k]) if g is None else g.contiguous()
+                 for k, g in zip(param_keys, grads)]
+        with span("train.allreduce", request=iteration, device=dev):
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+            for g in grads:
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
         out = dict(tables)
-        for k, g in zip(param_keys, grads):
-            # a table the render never read has a zero gradient
-            g = torch.zeros_like(params[k]) if g is None else g.contiguous()
-            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
-            out[k] = (params[k] - lr * g).detach().requires_grad_(True)
+        with span("train.update", request=iteration, device=dev):
+            for k, g in zip(param_keys, grads):
+                out[k] = (params[k] - lr * g).detach().requires_grad_(True)
         return loss, out
     return step
 

@@ -23,7 +23,10 @@ The bounce loops are Python loops on `alive.any()`: one host sync per bounce
 one light), each read through `utils.stats.host_item`, which counts it.
 `trace_wave(differentiable=True)` runs a fixed number of bounces instead, for
 autograd.  Under a profiler each loop iteration is a `wave` span, with
-`emit`, `bounce`, `traverse` and `accum` spans inside (`utils.stats.span`).
+`emit`, `bounce`, `traverse` and `accum` spans inside (`utils.stats.span`);
+under `volpath` the media's work of a bounce (coefficients, transmittance,
+distance sample and event) is in `medium` spans inside `bounce`, and the
+events are counted on the device (`utils.stats.count_medium`).
 
 Traversal dispatch for the world-space soup, in the reference's order:
 `pb_rows` in the tables -> the packet-BVH kernel; `bvh_node_min` -> the
@@ -78,7 +81,7 @@ from ignis_tpu_torch.ops.tlas import tlas_any, tlas_closest
 from ignis_tpu_torch.render.camera import generate_rays, pixel_coord_from_xy
 from ignis_tpu_torch.render.sampler import sample_pixel
 from ignis_tpu_torch.scene.compile import LIGHT_AREA_PLANE
-from ignis_tpu_torch.utils.stats import host_item, span
+from ignis_tpu_torch.utils.stats import count_medium, host_item, span
 
 OFFSET = float(np.float32(0.001))  # ray offset
 
@@ -395,11 +398,12 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
     # ---- the coefficients of each lane's current medium (volpath)
     if is_vol:
         med = st["medium"]
-        mctx = _pexpr_ctx(tables, surf, org, d)
-        m_sa, m_ss, m_g = medium_coefficients(scene, tables, med, mctx)
-        hitvol = medium_eval(scene, tables, med, m_sa, m_ss, org,
-                             surf["point"], seed=seed, counter=counter)
-        inf_tr = medium_eval_inf(scene, tables, med, m_sa, m_ss, org, d)
+        with span("medium"):
+            mctx = _pexpr_ctx(tables, surf, org, d)
+            m_sa, m_ss, m_g = medium_coefficients(scene, tables, med, mctx)
+            hitvol = medium_eval(scene, tables, med, m_sa, m_ss, org,
+                                 surf["point"], seed=seed, counter=counter)
+            inf_tr = medium_eval_inf(scene, tables, med, m_sa, m_ss, org, d)
         was_medium = torch.signbit(inv_pdf)
         inv_pdf_eff = maximum(inv_pdf, 0.0)
         # lanes continuing a null flight re-trace the same segment: the
@@ -475,11 +479,12 @@ def _bounce_core(scene, tables, st, tri_mask, shadow_mask, mask_bit=None):
         if is_vol:
             # attenuated by the transmittance to this hit and toward the
             # light
-            seg_fin = medium_eval(scene, tables, med, m_sa, m_ss,
-                                  surf["point"], ls["pos"], seed=seed,
-                                  counter=counter)
-            seg_inf = medium_eval_inf(scene, tables, med, m_sa, m_ss,
-                                      surf["point"], ls["dir"])
+            with span("medium"):
+                seg_fin = medium_eval(scene, tables, med, m_sa, m_ss,
+                                      surf["point"], ls["pos"], seed=seed,
+                                      counter=counter)
+                seg_inf = medium_eval_inf(scene, tables, med, m_sa, m_ss,
+                                          surf["point"], ls["dir"])
             seg = torch.where(ls["infinite"][..., None], seg_inf, seg_fin)
             sc = sc * hitvol * seg
         shadow_valid = (nee_active & (pdf_l_s > FLT_EPS)
@@ -603,12 +608,14 @@ def _volpath_bounce(scene, tables, st, surf, mat_type, specular, can_bounce,
     max_scat = max([m.get("max_scattering", 8) for m in scene.media] + [8])
     allow_medium = ((voldepth + 1 <= max_scat)
                     & ~_absorb_only_mask(scene, med))
-    ms, counter = medium_sample(scene, tables, med, m_sa, m_ss, seed,
-                                counter, org, surf["point"],
-                                can_bounce & allow_medium)
+    with span("medium"):
+        ms, counter = medium_sample(scene, tables, med, m_sa, m_ss, seed,
+                                    counter, org, surf["point"],
+                                    can_bounce & allow_medium)
+        ev, counter = medium_events(ms, seed, counter)
+        count_medium(0, lambda: torch.stack(
+            [ev["null"].sum(), ev["scatter"].sum(), ev["absorb"].sum()]))
     medium_event = ms["valid"]
-
-    ev, counter = medium_events(ms, seed, counter)
     absorb, scatter, null_ev = ev["absorb"], ev["scatter"], ev["null"]
     p_a, p_s, p_f = ev["p_a"], ev["p_s"], ev["p_f"]
 

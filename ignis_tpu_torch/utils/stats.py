@@ -21,7 +21,11 @@ Tracing inside a step: `span(name)` marks a layer boundary of the hot path
 `host_tensor` the one way it copies host values to the device (each such
 blocking operation counted by `host_syncs()`, and a `sync` span);
 `row_scatters()` counts the backward calls of the parameter tables' row
-gathers (`core.dgather`).  A span
+gathers (`core.dgather`); `grid_lookups()` the heterogeneous media's grid
+lookups issued (`medium.volume.grid_lookup`, a batched call each); and
+inside `medium_counts(sink)` the media's events and ratio-tracker flights
+are added up on the device into `sink` (`count_medium`), with no host
+sync: a `Runtime` reads its sink in `dumpStats`.  A span
 records only while a `torch.profiler` runs: otherwise it costs one check
 and allocates nothing.  Its record holds `time.time_ns()` stamps, the clock of
 the profiler's own events, so it lines up with a device trace:
@@ -141,6 +145,12 @@ class _SpanLog:
 _LOG = _SpanLog()
 _host_syncs = 0
 _row_scatters = 0
+_grid_lookups = 0
+# the device tensor that the media's event counts go to (None: not counted)
+_medium_sink = None
+# its slots, by the names `Runtime.dumpStats` gives them
+MEDIUM_COUNTS = ("MediumNullEvents", "MediumScatters", "MediumAbsorbs",
+                 "RatioFlights")
 
 
 class _Span:
@@ -243,6 +253,41 @@ def count_row_scatter():
     """+1 on `row_scatters()`: one backward of `core.dgather.gather_rows`."""
     global _row_scatters
     _row_scatters += 1
+
+
+def grid_lookups():
+    """The grid lookups of heterogeneous media issued so far in this
+    process (`medium.volume.grid_lookup` calls, each over a batch of
+    lanes), on either device."""
+    return _grid_lookups
+
+
+def count_grid_lookup():
+    """+1 on `grid_lookups()`."""
+    global _grid_lookups
+    _grid_lookups += 1
+
+
+@contextmanager
+def medium_counts(sink):
+    """Within the block, `count_medium` adds into `sink`, an int64 tensor
+    of `len(MEDIUM_COUNTS)` slots on the run's device."""
+    global _medium_sink
+    prev, _medium_sink = _medium_sink, sink
+    try:
+        yield
+    finally:
+        _medium_sink = prev
+
+
+def count_medium(first, counts):
+    """Add `counts()`, device values (a 1-d integer tensor), into the slots
+    of the current sink from `first` on, in place on the device: no host
+    sync.  Outside `medium_counts`, nothing (and `counts` is not called)."""
+    sink = _medium_sink
+    if sink is not None:
+        c = counts()
+        sink[first:first + c.shape[0]] += c
 
 
 def read_spans():

@@ -220,3 +220,149 @@ def test_the_counted_syncs_are_those_the_sync_debug_mode_sees():
     seen = [str(w.message) for w in ws
             if "called a synchronizing CUDA operation" in str(w.message)]
     assert stats.host_syncs() - before == len(seen) == 2, seen
+
+
+# ------------------------------------------------------------------ media
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: a `volpath` wave is many small launches, which
+    the thread pool slows, the more so beside the tier-1 run's workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cloud_runtime(tmp_path, **kw):
+    """A passthrough cube holding a seeded 12^3 NanoVDB cloud (delta
+    tracking, trilinear) under a constant sky, `volpath`, 8 x 8."""
+    from ignis_tpu_torch.medium.nanovdb import write_nvdb_grid
+    rng = np.random.default_rng(5)
+    dense = rng.uniform(0, 1, (12, 12, 12)).astype(np.float32)
+    dense[dense < 0.4] = 0.0
+    path = tmp_path / "cloud.nvdb"
+    write_nvdb_grid(path, dense)
+    scene = {
+        "technique": {"type": "volpath", "max_depth": 16},
+        "camera": {"type": "perspective", "fov": 40,
+                   "transform": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -4,
+                                 0, 0, 0, 1]},
+        "film": {"size": [8, 8]},
+        "bsdfs": [{"type": "passthrough", "name": "null"}],
+        "shapes": [{"type": "cube", "name": "box", "width": 2,
+                    "height": 2, "depth": 2}],
+        "entities": [{"name": "box", "shape": "box", "bsdf": "null",
+                      "inner_medium": "cloud"}],
+        "media": [{"type": "heterogeneous", "name": "cloud",
+                   "filename": str(path), "scalar_density": 3.0,
+                   "scalar_scattering": 0.9, "scalar_absorption": 0.1,
+                   "g": 0.5, "interpolate": True,
+                   "method": "delta_tracking"}],
+        "lights": [{"type": "constant", "name": "sky",
+                    "radiance": [0.4, 0.5, 0.7]}],
+    }
+    return Runtime(scene, seed=9, device="cpu", **kw)
+
+
+def test_medium_spans_nest_under_bounce(tmp_path, one_thread):
+    rt = _cloud_runtime(tmp_path)
+    rt.step()
+    _, recs = _profiled(rt.step)
+    by_index = {r["index"]: r for r in recs}
+    med = [r for r in recs if r["name"] == "medium"]
+    bounces = [r for r in recs if r["name"] == "bounce"]
+    # the coefficients and transmittance, and the distance sample and
+    # event, of every bounce (NEE's transmittance too where a light is
+    # sampled)
+    assert len(med) >= 2 * len(bounces) > 0
+    assert all(by_index[r["parent"]]["name"] == "bounce" for r in med)
+    # a path step has none
+    plain = _runtime()
+    _, recs = _profiled(plain.step)
+    assert not any(r["name"] == "medium" for r in recs)
+
+
+def test_medium_events_add_up_to_the_valid_samples(tmp_path, monkeypatch,
+                                                   one_thread):
+    """MediumNullEvents + MediumScatters + MediumAbsorbs, added up on the
+    device, equal a host count of the lanes `medium_sample` made valid."""
+    from ignis_tpu_torch.render import integrator
+    real = integrator.medium_sample
+    valid = []
+
+    def counted(*a, **kw):
+        ms, counter = real(*a, **kw)
+        valid.append(int(ms["valid"].sum()))
+        return ms, counter
+    monkeypatch.setattr(integrator, "medium_sample", counted)
+    rt = _cloud_runtime(tmp_path)
+    rt.step()
+    rt.step()
+    rt.dumpStats()
+    q = rt.stats.quantities
+    events = [q["MediumNullEvents"], q["MediumScatters"], q["MediumAbsorbs"]]
+    assert events[0] > 0 and events[1] > 0
+    assert sum(events) == sum(valid)
+    assert q["RatioFlights"] > 0 and q["MediumLookups"] > 0
+    assert "MediumNullEvents: " in rt.dumpStats()
+
+
+def test_medium_counters_add_no_host_sync(tmp_path, monkeypatch, one_thread):
+    """A step's host syncs are the same with the media's counters off (no
+    sink), on a `volpath` and on a `path` step."""
+    import ignis_tpu_torch.api as api
+    import contextlib
+
+    def syncs(make):
+        rt = make()
+        rt.step()
+        return rt.stats.quantities["HostSyncs"]
+    cloud = lambda: _cloud_runtime(tmp_path)
+    counted = syncs(cloud), syncs(_runtime)
+    monkeypatch.setattr(api, "medium_counts",
+                        lambda sink: contextlib.nullcontext())
+    assert (syncs(cloud), syncs(_runtime)) == counted
+    # and the path step counts no media events at all
+    rt = _runtime()
+    rt.step()
+    assert "MediumNullEvents" not in rt.dumpStats()
+
+
+def test_sharded_step_spans_wrap_its_all_reduces(monkeypatch):
+    """`sharded_train_step` on a one-rank gloo group: the four phases as
+    `train_step`'s, and every `all_reduce` of the loss and the gradients
+    inside the one `train.allreduce` span, which holds nothing else."""
+    import torch.distributed as dist
+    from ignis_tpu_torch.parallel import sharding
+    scene = demo_scene()
+    scene["film"] = {"size": [8, 8]}
+    scene["technique"] = dict(scene["technique"], max_depth=2)
+    sc = load_and_compile(scene)
+    tables = params_from_numpy(sc.tables, ("mat_colors", "light_data"),
+                               "cpu")
+    idx = torch.arange(64, dtype=torch.int32)
+    calls = []
+    real = dist.all_reduce
+
+    def recorded(t, *a, **kw):
+        log = stats._LOG
+        calls.append(log.open[-1].name if log.open else None)
+        return real(t, *a, **kw)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        step = sharding.sharded_train_step(sc, sharding.make_mesh())
+        monkeypatch.setattr(sharding.dist, "all_reduce", recorded)
+        _, recs = _profiled(lambda: step(tables, idx % 8, idx // 8, 0, 5, 0,
+                                         1, torch.zeros((64, 3))))
+    finally:
+        dist.destroy_process_group()
+    top = [r for r in recs if r["parent"] is None]
+    assert [r["name"] for r in top] == ["train.forward", "train.backward",
+                                        "train.allreduce", "train.update"]
+    assert all(r["request"] == 5 for r in top)
+    # the loss and the two parameter tables' gradients
+    assert calls == ["train.allreduce"] * 3
+    ar = top[2]["index"]
+    assert not any(r["parent"] == ar for r in recs)
